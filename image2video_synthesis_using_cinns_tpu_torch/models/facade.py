@@ -1,0 +1,173 @@
+"""User-facing ``Model``: checkpoint directory in, videos out (port of
+``models/facade.py``; sampling only).
+
+* Configs are chained: ``model_path/config_stage2.yaml`` -> its
+  ``First_stage_model`` directory (``config_stage1.yaml``, decoder) and its
+  ``Conditioning_Model`` directory (``config_stage2_AE.yaml``, the frozen
+  embedder, whose checkpoint is spliced into the cINN's variables).
+* ``forward(x0, cond)``: draw nu ~ N(0, I), compute the start-frame
+  embedding, run the flow inverse to z, decode, and extend autoregressively
+  from the last frame until ``vid_length`` frames, truncated on the time
+  axis.
+* ``compute_dtype='bfloat16'`` runs the decoder in bf16; the embedder and
+  the flow stay fp32 (``use_kernel=True`` streams the flow's weights in
+  bf16, as the JAX package's Pallas kernel does). Outputs are fp32.
+
+The boundary keeps the JAX facade's layout: x0 (B, C, H, W), videos
+(B, T, C, H, W), in [-1, 1]. Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``; without a card and without a device, they raise.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from .. import config as cfg
+from ..utils import checkpoint as ckpt_io
+from ..utils import convert
+from .stage1.decoder import Generator
+from .stage2.inn import SupervisedTransformer
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _join(*parts: str) -> str:
+    return os.path.join(*[p for p in parts if p])
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The device asked for, or ``cuda`` when none was; raises rather than
+    falling back to the CPU when there is no card."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _as_tensor(a, device: torch.device) -> torch.Tensor:
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+    return t.to(device=device, dtype=torch.float32)
+
+
+class Model:
+    def __init__(self, model_path: str, vid_length: int, seed: int = 0, use_kernel: bool = True,
+                 allow_random_init: bool = False, compute_dtype: str = "float32",
+                 device: str | torch.device | None = None):
+        config = cfg.load(_join(model_path, "config_stage2.yaml"))
+        fs = config.First_stage_model
+        path_stage1 = _join(fs["model_path"], fs["model_name"])
+        config_stage1 = cfg.load(_join(path_stage1, "config_stage1.yaml"))
+        cond_dic = config.Conditioning_Model
+        ae_dir = _join(cond_dic["model_path"], cond_dic["model_name"])
+        ae_cfg_path = _join(ae_dir, "config_stage2_AE.yaml")
+        ae_cfg = cfg.load(ae_cfg_path).AE if os.path.exists(ae_cfg_path) else None
+
+        dec_ckpt = ckpt_io.find(_join(path_stage1, fs["checkpoint_decoder"]))
+        flow_ckpt = ckpt_io.find(_join(model_path, "cINN"))
+        missing = [n for n, c in (("decoder", dec_ckpt), ("cINN", flow_ckpt)) if c is None]
+        if missing and not allow_random_init:
+            raise FileNotFoundError(
+                f"no checkpoint found for {', '.join(missing)}; pass allow_random_init=True "
+                "to run with random weights"
+            )
+
+        def load_weights(decoder: Generator, flow: SupervisedTransformer) -> None:
+            if dec_ckpt is not None:
+                decoder.load_state_dict(convert.to_state_dict(_variables(dec_ckpt)))
+            if flow_ckpt is not None:
+                flow_vars = _variables(flow_ckpt)
+                emb_ckpt = ckpt_io.find(_join(ae_dir, cond_dic.get("checkpoint_name", "")))
+                if emb_ckpt is not None:
+                    flow_vars = convert.splice(flow_vars, "embedder", _variables(emb_ckpt))
+                flow.load_state_dict(convert.to_state_dict(flow_vars))
+
+        self._setup(config, config_stage1, ae_cfg, vid_length, seed, use_kernel, compute_dtype,
+                    device, load_weights)
+
+    @classmethod
+    def from_configs(cls, config, config_stage1, ae_cfg, vid_length: int, seed: int = 0,
+                     use_kernel: bool = True, compute_dtype: str = "float32",
+                     device: str | torch.device | None = None) -> "Model":
+        """A model with random weights drawn from ``seed``, built from configs
+        held in memory (no checkpoint directory, no YAML reader needed)."""
+        self = cls.__new__(cls)
+        self._setup(config, config_stage1, ae_cfg, vid_length, seed, use_kernel, compute_dtype,
+                    device, None)
+        return self
+
+    def _setup(self, config, config_stage1, ae_cfg, vid_length, seed, use_kernel,
+               compute_dtype, device, load_weights) -> None:
+        self.config = config
+        self.config_stage1 = config_stage1
+        self.device = resolve_device(device)
+        self.z_dim = config_stage1.Decoder["z_dim"]
+        self.vid_length = vid_length
+        if compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
+        self.compute_dtype = _DTYPES[compute_dtype]
+
+        # modules are built (and randomly initialised from ``seed``) on the CPU
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            decoder = Generator.from_config(config_stage1.Decoder)
+            flow = SupervisedTransformer.from_configs(
+                config, config_stage1.Decoder, ae_cfg, use_kernel=use_kernel
+            )
+        if load_weights is not None:
+            load_weights(decoder, flow)
+        flow.flow.pack_kernel_weights()
+        self.decoder = decoder.to(self.device, self.compute_dtype).eval()
+        self.flow = flow.to(self.device).eval()
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(seed)
+
+    # ------------------------------------------------------------------
+    def draw_residual(self, batch_size: int) -> torch.Tensor:
+        """The next nu ~ N(0, I) of the model's generator: the stream ``forward``
+        draws from when no ``residual`` is given."""
+        return torch.randn((batch_size, self.z_dim), generator=self._generator,
+                           device=self.device)
+
+    def _decode(self, img: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self.decoder(img.to(dt), z.to(dt)).float()
+
+    @torch.inference_mode()
+    def sample(self, x_0, cond=None, residual=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """x_0: (B, C, H, W) in [-1, 1] -> (video (B, T, C, H, W), z (B, z_dim)).
+
+        ``residual`` injects a recorded nu (fixed-seed parity tests); by
+        default nu is drawn from the model's generator."""
+        x0 = _as_tensor(x_0, self.device)
+        b = x0.shape[0]
+        if residual is None:
+            residual = self.draw_residual(b)
+        conds = [x0] if cond is None else [x0, _as_tensor(cond, self.device)]
+        z = self.flow.reverse(_as_tensor(residual, self.device), conds).reshape(b, -1)
+        seq = self._decode(x0, z)  # (B, 3, T, H, W)
+        base = self.decoder.base_frames
+        n_repeats = max(0, -(-self.vid_length // base) - 1)
+        chunks = [seq]
+        for _ in range(n_repeats):
+            chunks.append(self._decode(chunks[-1][:, :, -1], z))
+        seq = torch.cat(chunks, dim=2)[:, :, : self.vid_length]
+        return seq.permute(0, 2, 1, 3, 4).contiguous(), z
+
+    def forward(self, x_0, cond=None, residual=None) -> torch.Tensor:
+        """x_0: (B, C, H, W) in [-1, 1] -> video (B, T, C, H, W) in [-1, 1]."""
+        return self.sample(x_0, cond, residual)[0]
+
+    def __call__(self, x_0, cond=None, residual=None) -> torch.Tensor:
+        return self.forward(x_0, cond, residual)
+
+
+def _variables(path: str) -> dict:
+    payload = ckpt_io.load(path)
+    variables = payload.get("state_dict", payload)
+    if not isinstance(variables, dict) or not ({"params", "buffers"} & set(variables)):
+        raise ValueError(f"{path} is not a variables checkpoint of the JAX package")
+    return variables
