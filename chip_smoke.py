@@ -7,8 +7,9 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Environment: versions, the card's name and power limit; TF32 off for
    matmuls and convolutions, so fp32 means fp32.
-2. Build every CUDA kernel of the sampling path from ``csrc/`` (nvcc, all
-   sources at once) and print the build time and ptxas report.
+2. Build every CUDA source of the sampling path from ``csrc/`` (one nvcc per
+   source, all started together: the chain kernel and its timeline build)
+   and print the build time and ptxas report.
 3. Kernel against its plain PyTorch version on the card at the BAIR flow
    shape (B=6, C=64, E=64 or 94 with control, hidden 512, 20 blocks), with
    seeded random weights and a non-trivial ActNorm (and one block alone, at
@@ -17,11 +18,20 @@ Phases (any failure raises and the script exits non-zero):
 4. The main path at the full BAIR preset with random weights: ``Model.sample``
    (bs=6, 64x64 x0) at 16 and 24 frames (the autoregressive extension), fp32
    and bf16 decoder, and ``Model.forward``. Launch counters are zeroed just
-   before these calls and read just after. Then, outside that window, the
-   flow forward (``SupervisedTransformer``) maps the sampled z back to nu.
-5. Timings: each kernel's median ms beside its plain version and its bound,
-   and ``Model.forward`` latency and frames/s, each with the card's name.
-6. A ``{"kernels": [...]}`` line, then the last line
+   before these calls and read just after; every chain must have been one
+   device kernel. Then, outside that window, the flow forward
+   (``SupervisedTransformer``) maps the sampled z back to nu.
+5. Timings: each kernel's median ms beside its plain version and its bound;
+   the reverse chain at B = 1, 6 and 16; where a chain's time goes, from the
+   timeline build (per layer and pass, and the kernel's own span), and a
+   probe of a grid barrier written by hand beside cooperative groups' grid
+   sync (the chain itself has no grid barrier); and ``Model.forward``
+   latency and frames/s, each with the card's name.
+6. A ``torch.profiler`` trace of two bf16 ``Model.forward`` calls: the top
+   device kernels, the flow chain's share, the device's idle share, and the
+   host and device time before the flow (the embedder). The trace is written
+   to ``smoke_out/`` (listed in ``.gitignore``).
+7. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is visible, and when the
@@ -30,11 +40,14 @@ port's package is not beside it.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense; fp32 outside the tensor cores
@@ -50,6 +63,9 @@ TOL = {"fp32": 1e-4, "bf16": 2e-2}
 TOL_ONE_BLOCK = {"fp32": 1e-5, "bf16": 1e-4}
 PALLAS_KERNEL = "image2video_synthesis_using_cinns_tpu/ops/pallas/flow_kernel.py"
 SOURCE = "image2video_synthesis_using_cinns_tpu_torch/csrc/flow_chain.cu"
+LIBRARIES = ("flow_chain", "flow_chain_timeline")  # csrc/<name>.cu, built at once
+SWEEP = (1, 6, 16)  # batch sizes of the reverse chain's sweep
+OUT_DIR = Path(__file__).resolve().parent / "smoke_out"
 DEVICE = "cuda"
 PRESET = "bair"  # the main path's model: full width, random weights
 BATCH = 6
@@ -222,6 +238,8 @@ def phase_main_path():
     # sampling runs the flow in reverse only; the forward chain is off this path
     if launches["flow_reverse_fused"] < 1:
         raise AssertionError("flow_reverse_fused was not launched on the main path")
+    if device_launches != launches:
+        raise AssertionError("a chain launched other than one device kernel")
 
     with torch.no_grad():
         flow = models["float32"].flow
@@ -248,6 +266,101 @@ def phase_main_path():
           outs[("float32", 16)][0], 1e-5)
     check("nu_roundtrip", nu_back, residual, 1e-2)
     return models, x0, residual, launches, device_launches
+
+
+def _timeline_library(lib):
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
+
+    fk._type_library(lib)
+    lib.flow_chain_timeline.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    lib.flow_chain_barrier_probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.flow_chain_timeline, lib.flow_chain_barrier_probe):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def chain_breakdown(card: str, p, x, emb):
+    """Where one reverse chain's time goes, from the timeline build: per CTA
+    and layer, clock64() at the layer's start, input staged (the wait for the
+    net's count, then the load; none in layer 0), weights ready, tile done,
+    the layer's count released (layers 0-2), and at a pass's end (s, t)
+    arrived and glue done. Medians per layer of the MLP over the CTAs that had
+    a tile in it; the wait for (s, t) (from the CTA's last tile of the pass,
+    or the last layer's start where it had none) and the glue over all CTAs;
+    and the span of a pass, from one glue's end to the next, over all CTAs
+    and passes; and a CTA's time from the kernel's entry to its exit, before
+    the first layer, and in the first pass. SM clocks are not synchronised,
+    so only differences within one CTA are taken, and cycles become time at
+    the clock measured by each CTA's entry and exit against the global
+    timer, on which the kernel's span, from its first CTA's entry to its
+    last one's exit, is read too. Then a probe times grid barriers alone."""
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import build
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
+
+    lib = build.load("flow_chain_timeline", _timeline_library)
+    fk.LIBRARY = "flow_chain_timeline"
+    try:
+        with torch.no_grad():
+            fk.flow_reverse_fused(p, x, emb)
+            torch.cuda.synchronize()
+            tl_ms = cuda_ms(lambda: fk.flow_reverse_fused(p, x, emb))
+            fk.flow_reverse_fused(p, x, emb)
+            torch.cuda.synchronize()
+    finally:
+        fk.LIBRARY = "flow_chain"
+    dims = (ctypes.c_int * 3)()
+    lib.flow_chain_timeline(None, dims)  # the sizes only
+    tl = np.zeros(tuple(dims), dtype=np.int64)
+    err = lib.flow_chain_timeline(tl.ctypes.data, dims)
+    if err != 0:
+        raise RuntimeError(f"timeline read failed: CUDA error {err}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_passes = 2 * p.n_flows
+    edges = tl[:sms, -1, :4].astype(np.float64)  # entry, exit: SM cycles, then global ns
+    mhz = float(np.median((edges[:, 1] - edges[:, 0]) / (edges[:, 3] - edges[:, 2]))) * 1e3
+    t = tl[:sms, :4 * n_passes].astype(np.float64) / mhz  # microseconds
+    t = t.reshape(sms, n_passes, 4, t.shape[-1])  # (CTA, pass, layer of the MLP, point)
+    had_tile = t[..., 3] > 0
+    layers = []
+    for lyr in range(4):
+        h = had_tile[:, :, lyr]
+        parts = [np.median((t[:, :, lyr, k + 1] - t[:, :, lyr, k])[h])
+                 for k in range(3 if lyr == 3 else 4)]
+        layers.append(f"layer {lyr} ({int(h.sum())} tiles) input {parts[0]:.3f}, weights "
+                      f"{parts[1]:.3f}, math {parts[2]:.3f}"
+                      + ("" if lyr == 3 else f", release {parts[3]:.3f}"))
+    end = t[:, :, 3]
+    own_end = np.where(had_tile[:, :, 3], end[..., 3], end[..., 0])
+    span = np.diff(end[..., 5], axis=1)
+    entry, leave = edges[:, 0] / mhz, edges[:, 1] / mhz
+    log(f"  [{card}] chain breakdown, reverse bf16-weights B={x.shape[0]} (timeline build "
+        f"{tl_ms:.4f} ms a call; SM clock {mhz:.0f} MHz, measured against the global timer), "
+        "median us: "
+        + "; ".join(layers)
+        + f"; per pass: wait for (s, t) {np.median(end[..., 4] - own_end):.3f}, glue "
+        f"{np.median(end[..., 5] - end[..., 4]):.3f}, span {np.median(span):.3f} "
+        f"(x {n_passes} passes = {np.median(span) * n_passes / 1e3:.4f} ms); a CTA from entry "
+        f"to exit {np.median(leave - entry):.3f}, of which before the first layer "
+        f"{np.median(t[:, 0, 0, 0] - entry):.3f} and the first pass "
+        f"{np.median(end[:, 0, 5] - t[:, 0, 0, 0]):.3f}; the kernel, first entry to last exit "
+        f"{(edges[:, 3].max() - edges[:, 2].min()) / 1e3:.3f}, entries spread "
+        f"{np.ptp(edges[:, 2]) / 1e3:.3f}, exits {np.ptp(edges[:, 3]) / 1e3:.3f}")
+    stream = torch.cuda.current_stream().cuda_stream
+    for barrier in ("cooperative groups' grid sync", "a grid barrier written by hand"):
+        for n in (100, 1000):
+            def probe():
+                counter = (None if barrier.startswith("cooperative")
+                           else torch.zeros(1, dtype=torch.int32, device=DEVICE))
+                err = lib.flow_chain_barrier_probe(
+                    None if counter is None else counter.data_ptr(), n, stream)
+                if err != 0:
+                    raise RuntimeError(f"barrier probe: CUDA error {err}")
+            ms = cuda_ms(probe, iters=5, reps=5)
+            log(f"  [{card}] barrier probe, {barrier} ({sms} CTAs x 256 threads): {n} barriers "
+                f"{ms:.4f} ms, {ms * 1e3 / n:.3f} us each")
 
 
 def phase_timings(card: str, models, x0, residual):
@@ -283,6 +396,16 @@ def phase_timings(card: str, models, x0, residual):
                 log(f"  [{card}] {name} {mode}-weights B=6: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, bound {rows[(name, mode)]['bound_ms']:.4f} ms "
                     f"({rows[(name, mode)]['bound_by']}: {wbytes} weight bytes, {flops} flops)")
+        if mode != "bf16":
+            continue
+        with torch.no_grad():  # the main path's chain: batch sweep and breakdown
+            gen = torch.Generator(device="cpu").manual_seed(5)
+            for b in SWEEP:
+                xb = torch.randn(b, residual.shape[1], generator=gen).to(DEVICE)
+                eb = torch.randn(b, emb.shape[1], generator=gen).to(DEVICE)
+                ms = cuda_ms(lambda: fk.flow_reverse_fused(p, xb, eb))
+                log(f"  [{card}] flow_reverse_fused bf16-weights batch sweep B={b}: {ms:.4f} ms")
+            chain_breakdown(card, p, residual, emb)
     for dt, model in models.items():
         model.vid_length = 16
         with torch.no_grad():
@@ -309,6 +432,81 @@ def phase_timings(card: str, models, x0, residual):
     return rows
 
 
+def _union_us(spans) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > reach:
+            total += b - max(a, reach)
+            reach = b
+    return total
+
+
+def phase_trace(card: str, models, x0, residual):
+    """One torch.profiler window over two bf16 Model.forward calls after
+    warm-up: the top device kernels, the flow chain's share, the device's
+    idle share over the window's device span, and for each call the host
+    time from its start to the flow chain's launch against the device time
+    of the kernels launched in it (the embedder and the input's preparation)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    model = models["bfloat16"]
+    model.vid_length = 16
+    with torch.no_grad():
+        for _ in range(2):
+            model.forward(x0, residual=residual)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(2):
+                with record_function(f"Model.forward #{i}"):
+                    model.forward(x0, residual=residual)
+            torch.cuda.synchronize()
+    OUT_DIR.mkdir(exist_ok=True)
+    path = OUT_DIR / "trace_model_forward_bf16.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        log(f"  [{card}] trace: the profiler recorded no device activity; not measured")
+        return
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in device]
+    span = max(b for _, b in spans) - min(a for a, _ in spans)
+    busy = _union_us(spans)
+    by_name: dict[str, list[float]] = {}
+    for e in device:
+        by_name.setdefault(e["name"], []).append(e["dur"])
+    total = sum(sum(v) for v in by_name.values())
+    chain = sum(sum(v) for k, v in by_name.items() if "chain_kernel" in k)
+    log(f"  [{card}] trace of 2 x Model.forward bs=6 T=16 bf16 ({path.name}): device span "
+        f"{span / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle share {1 - busy / span:.3f}; "
+        f"{len(device)} device activities, {total / 1e3:.3f} ms in all; flow chain "
+        f"{chain / 1e3:.4f} ms = {chain / total:.4f} of device time")
+    for name, durs in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]:
+        log(f"    {sum(durs) / 1e3:9.4f} ms  {sum(durs) / total:.3f}  x{len(durs):<4d} {name[:110]}")
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    for i in range(2):
+        window = [e for e in events if e.get("cat") == "user_annotation"
+                  and e.get("name") == f"Model.forward #{i}"]
+        if not window:
+            continue
+        start, end = window[0]["ts"], window[0]["ts"] + window[0]["dur"]
+        launched = sorted((launch_ts[e["args"]["correlation"]], e) for e in device
+                          if launch_ts.get(e.get("args", {}).get("correlation"), -1.0) >= start
+                          and launch_ts[e["args"]["correlation"]] <= end)
+        chain_at = next((ts for ts, e in launched if "chain_kernel" in e["name"]), None)
+        if chain_at is None:
+            continue
+        before = [e for ts, e in launched if ts < chain_at]
+        dev_busy = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in before])
+        log(f"  [{card}] Model.forward #{i}: host {(chain_at - start) / 1e3:.3f} ms from its "
+            f"start to the flow chain's launch; the {len(before)} device activities launched "
+            f"before it (embedder, input) are busy {dev_busy / 1e3:.3f} ms; host wall "
+            f"{(end - start) / 1e3:.3f} ms under the profiler")
+
+
 def main() -> int:
     import torch
 
@@ -328,9 +526,11 @@ def main() -> int:
 
     log("== 2. build")
     t0 = time.perf_counter()
-    built = build.build("flow_chain")
-    log(f"  built in {time.perf_counter() - t0:.2f} s: flow_chain ({built['seconds']:.2f} s)")
-    for line in built["log"].splitlines():
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source, all at once
+        built = dict(zip(LIBRARIES, pool.map(build.build, LIBRARIES)))
+    log(f"  built in {time.perf_counter() - t0:.2f} s: "
+        + ", ".join(f"{name} ({b['seconds']:.2f} s)" for name, b in built.items()))
+    for line in built["flow_chain"]["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  " + line.strip())
 
@@ -342,6 +542,9 @@ def main() -> int:
 
     log("== 5. timings")
     rows = phase_timings(card, models, x0, residual)
+
+    log("== 6. trace")
+    phase_trace(card, models, x0, residual)
 
     kernels = []
     for name, line in (("flow_reverse_fused", 221), ("flow_forward_fused", 215)):

@@ -3,8 +3,9 @@
 ``csrc/<name>.cu`` has a plain C interface and is compiled for Hopper
 (``sm_90a``) into ``lib<name>-<digest>.so`` under the package's ``_build/``
 directory (listed in ``.gitignore``) the first time it is needed. The digest
-covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. Nothing is built when a module is imported.
+covers the source, the ``csrc/`` files it includes with quotes, and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
+Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -39,9 +41,21 @@ def nvcc() -> str:
     return path
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and, recursively, the ``csrc/`` files it includes with quotes."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path not in found:
+            found.append(path)
+            todo += [CSRC / inc for inc in re.findall(r'^#include "([^"]+)"', path.read_text(), re.M)]
+    return found
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in sources(name):
+        h.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

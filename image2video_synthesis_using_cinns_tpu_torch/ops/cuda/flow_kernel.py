@@ -11,23 +11,27 @@ or forward (ActNorm with logdet, InvLeakyReLU, pass 0, swap, pass 1 with
 logdet, shuffle). Each coupling pass runs two 4-layer MLPs (s and t) on
 ``concat(x_half * mask, emb)``.
 
-What bounds it on the H100: weight streaming. At the BAIR shape (B=6,
-C=64, E=64, hidden 512, 20 blocks) one chain reads 47.2 M weights, 94.4 MB
-in bf16 or 189 MB in fp32, and does about 2 * B flops per weight; the
-weights exceed the 50 MB L2, so every chain streams them from HBM. One CTA
-cannot pull that (the TPU kernel streams them through one core).
+What bounds it on the H100. At the BAIR shape (B=6, C=64, E=64, hidden
+512, 20 blocks) one chain reads 47.2 M weights, 94.4 MB in bf16 (28 us at
+3.35 TB/s) or 189 MB in fp32, and does about 2 * B flops per weight. But its
+160 MLP layers depend on each other in a row, and each needs every output of
+its net in the layer before, so the chain is bound by 160 hand-offs between
+CTAs (stores to L2, a signal, and the loads by the CTAs that need them), not
+by bytes.
 
-What the design does about it (first version, simple and right): the C
-host function loops over the blocks and, for each coupling pass, launches
-one kernel per MLP layer that computes s and t together (``blockIdx.y``
-picks the net). Each CTA owns 16 output columns for all B rows, reads its
-weight slab once with coalesced loads, keeps the activations in shared
-memory and accumulates in fp32; the K dimension is split across the CTA's
-threads and reduced in a fixed order, so results do not vary run to run.
-A one-CTA glue kernel between passes does the gather, the coupling update,
-the swap, InvLeakyReLU, ActNorm, the logdet and builds the next coupling
-input. A persistent single-launch design, CUDA graphs, wgmma and TMA are
-later work.
+What the design does about it: one persistent, cooperative launch per chain
+(one CTA per SM). Each layer's output columns, s and t together, are cut into
+tiles of ``TILE_N`` columns owned by fixed CTAs, so each CTA streams its
+weight slabs (stored contiguously by ``PackedFlow``) through a 128 KB ring in
+shared memory with ``cp.async.bulk``, many layers ahead of the math, while it
+waits for its input. There is no grid barrier: a net's count of finished
+tiles (release/acquire) hands a hidden layer to the next, and the last
+layer's (s, t) travel as 8-byte units that carry a flag naming the call and
+the pass. After a coupling pass every CTA applies the glue (coupling update,
+swap, InvLeakyReLU, ActNorm, logdet, shuffle, the next coupling input) to its
+own copy of x in shared memory. ``csrc/flow_chain.cu`` says how this answers
+each of the five causes that held the first design (201 launches per chain)
+back, and why its buffers may be reused with no further wait.
 
 Numerics match the Pallas kernel: in bf16-weight mode every product's
 activation input (the coupling input included) is rounded to bf16, products
@@ -41,6 +45,7 @@ On a CPU tensor the wrappers run the plain PyTorch version below
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 import torch.nn as nn
@@ -52,23 +57,29 @@ INV_LRELU_ALPHA = 0.9
 HIDDEN_DEPTH = 2  # the only specialised depth: 4 linear layers per MLP
 N_LAYERS = HIDDEN_DEPTH + 2
 MAX_BATCH = 16  # kMaxB in csrc/flow_chain.cu
-TILE_N = 16  # kTileN in csrc/flow_chain.cu: packed widths are padded to it
+TILE_N = 8  # kTileN in csrc/flow_chain.cu: the columns of a tile; packed widths are padded to it
+BARRIER_WORDS = 3 * 32  # kBarrierWords in csrc/flow_chain.cu: the counts of the hand-offs
+# the library the wrappers launch: csrc/flow_chain.cu, or its timeline build
+# csrc/flow_chain_timeline.cu, which also records where a chain's time goes
+LIBRARY = "flow_chain"
 
 # launches of the chain, per wrapper: each adds one where it launches it
 launches = {"flow_reverse_fused": 0, "flow_forward_fused": 0}
-# the device kernels those chains launched (1 + 10 * n_flows per chain), as
-# the C function reports them
+# the device kernels those chains launched (1 per chain), as the C function
+# reports them
 device_launches = {"flow_reverse_fused": 0, "flow_forward_fused": 0}
 
 
 class PackedFlow(nn.Module):
     """The flow's weights in the kernel's layout, built once at load.
 
-    Layer ``l`` is ``w{l}``: (n_flows, 2 passes, 2 nets (s, t), d_in, d_pad)
-    in the weight dtype, (in, out) order so a CTA's columns are contiguous,
-    with the output width zero-padded to a multiple of ``TILE_N``; ``b{l}``
-    is (n_flows, 2, 2, d_pad) in fp32. Buffers are non-persistent: they are
-    derived from the module's parameters and never saved.
+    Layer ``l`` is ``w{l}``: (n_flows, 2 passes, tiles, d_in, TILE_N) in the
+    weight dtype, where the output width is zero-padded to ``d_pad``, a
+    multiple of ``TILE_N``, and ``tiles = 2 * d_pad / TILE_N`` counts the s
+    net's tiles, then the t net's. So the slab of one tile, the weights that
+    one CTA streams for it, is contiguous. ``b{l}`` is (n_flows, 2, 2, d_pad)
+    in fp32. Buffers are non-persistent: they are derived from the module's
+    parameters and never saved.
     """
 
     def __init__(self, blocks: dict, shuffle_fwd: torch.Tensor, shuffle_inv: torch.Tensor,
@@ -97,7 +108,9 @@ class PackedFlow(nn.Module):
                     wt, bt = coupling[net][li]
                     w[:, p, k, :, :d_out] = wt.detach().transpose(1, 2).to(weight_dtype)
                     b[:, p, k, :d_out] = bt.detach().float()
-            self.register_buffer(f"w{li}", w, persistent=False)
+            w = w.reshape(self.n_flows, 2, 2, d_in, d_pad // TILE_N, TILE_N)
+            w = w.permute(0, 1, 2, 4, 3, 5).reshape(self.n_flows, 2, -1, d_in, TILE_N)
+            self.register_buffer(f"w{li}", w.contiguous(), persistent=False)
             self.register_buffer(f"b{li}", b, persistent=False)
             self.d_out.append(d_out)
         self.register_buffer("loc", blocks["loc"].detach().float().contiguous(), persistent=False)
@@ -112,6 +125,13 @@ class PackedFlow(nn.Module):
     def biases(self) -> list[torch.Tensor]:
         return [getattr(self, f"b{li}") for li in range(N_LAYERS)]
 
+    def dense(self, li: int, blk: int, pass_: int, net: int) -> torch.Tensor:
+        """Layer ``li``'s (d_in, d_out) weight of one net, from its tiles."""
+        w = getattr(self, f"w{li}")[blk, pass_]  # (tiles, d_in, TILE_N)
+        per_net = w.shape[0] // 2
+        w = w[net * per_net:(net + 1) * per_net].transpose(0, 1).reshape(w.shape[1], -1)
+        return w[:, :self.d_out[li]]
+
     def weight_bytes(self) -> int:
         """Bytes of the unpadded weights one chain must read (bound accounting)."""
         item = 2 if self.bf16 else 4
@@ -124,11 +144,10 @@ class PackedFlow(nn.Module):
 # --------------------------------------------------------------------------
 
 def _mlp_ref(p: PackedFlow, blk: int, pass_: int, net: int, h: torch.Tensor) -> torch.Tensor:
-    for li, (w, b) in enumerate(zip(p.weights(), p.biases())):
-        d_out = p.d_out[li]
+    for li, b in enumerate(p.biases()):
         if p.bf16:
             h = h.to(torch.bfloat16).float()
-        h = h @ w[blk, pass_, net, :, :d_out].float() + b[blk, pass_, net, :d_out]
+        h = h @ p.dense(li, blk, pass_, net).float() + b[blk, pass_, net, :p.d_out[li]]
         if li < N_LAYERS - 1:
             h = torch.where(h >= 0, h, LRELU_SLOPE * h)
     return h
@@ -185,7 +204,8 @@ def flow_forward_fused_ref(p: PackedFlow, x: torch.Tensor, emb: torch.Tensor):
 
 def _type_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.flow_chain.argtypes = [vp] * 17 + [ci] * 7 + [vp, ctypes.POINTER(ci)]
+    lib.flow_chain.argtypes = ([vp] * 17 + [ctypes.c_longlong, ctypes.c_uint] + [ci] * 7
+                               + [vp, ctypes.POINTER(ci)])
     lib.flow_chain.restype = ci
     lib.flow_chain_error_string.argtypes = [ci]
     lib.flow_chain_error_string.restype = ctypes.c_char_p
@@ -193,12 +213,41 @@ def _type_library(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _lib() -> ctypes.CDLL:
-    return build.load("flow_chain", _type_library)
+    return build.load(LIBRARY, _type_library)
 
 
-def scratch_floats(p: PackedFlow, batch: int) -> int:
-    """Workspace: the coupling input, two hidden buffers, and (s, t)."""
-    return batch * (p.C // 2 + p.E) + 2 * (2 * batch * p.H) + 2 * batch * (p.C // 2)
+def _round128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def workspace_bytes(C: int, H: int) -> int:
+    """The kernel's workspace for a flow of C channels and hidden width H: the
+    hand-offs' counts, two buffers of the last layer's (s, t) as 8-byte units,
+    and two of the hidden layers' outputs, all sized for MAX_BATCH rows."""
+    return (_round128(BARRIER_WORDS * 4) + 2 * _round128(2 * MAX_BATCH * (C // 2) * 8)
+            + 2 * _round128(2 * MAX_BATCH * H * 4))
+
+
+SEQ_LIMIT = 1 << 23  # 2^(32 - kFlagShift): calls on a workspace before its flags would repeat
+_workspaces: dict[tuple[torch.device, int], list] = {}
+_workspaces_lock = threading.Lock()  # two calls on a stream must not draw one number
+
+
+def _workspace(device: torch.device, stream: int, nbytes: int) -> tuple[torch.Tensor, int]:
+    """The workspace of chains on one stream and the number of this call on
+    it. Chains on one stream run one after another, so they share it; another
+    stream gets its own. It is zeroed when made, and again before the call
+    number would repeat, since the kernel's flags name the call."""
+    key = (device, stream)
+    with _workspaces_lock:
+        ws = _workspaces.get(key)
+        if ws is None or ws[0].numel() < nbytes:
+            ws = _workspaces[key] = [torch.zeros(nbytes, dtype=torch.uint8, device=device), 0]
+        ws[1] += 1
+        if ws[1] == SEQ_LIMIT:
+            ws[0].zero_()
+            ws[1] = 1
+        return ws[0], ws[1]
 
 
 def _check(p: PackedFlow, x: torch.Tensor, emb: torch.Tensor) -> None:
@@ -213,8 +262,6 @@ def _check(p: PackedFlow, x: torch.Tensor, emb: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous float32")
         if t.device != p.loc.device:
             raise ValueError(f"{name} is on {t.device}, the packed weights on {p.loc.device}")
-    if 2 * b * p.C * 4 > 48 * 1024:
-        raise ValueError("B * C too large for the glue kernel's shared memory")
 
 
 def _chain(name: str, p: PackedFlow, x: torch.Tensor, emb: torch.Tensor, reverse: bool):
@@ -223,16 +270,16 @@ def _chain(name: str, p: PackedFlow, x: torch.Tensor, emb: torch.Tensor, reverse
     b = x.shape[0]
     out = torch.empty_like(x)
     logdet = torch.empty(b, dtype=torch.float32, device=x.device)
-    scratch = torch.empty(scratch_floats(p, b), dtype=torch.float32, device=x.device)
     perm = p.inv if reverse else p.fwd
     n_launched = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        work, seq = _workspace(x.device, stream, workspace_bytes(p.C, p.H))
         err = lib.flow_chain(
             x.data_ptr(), emb.data_ptr(), out.data_ptr(), logdet.data_ptr(),
             *[w.data_ptr() for w in p.weights()], *[bb.data_ptr() for bb in p.biases()],
             p.loc.data_ptr(), p.scale.data_ptr(), perm.data_ptr(), p.mask.data_ptr(),
-            scratch.data_ptr(),
+            work.data_ptr(), work.numel(), seq,
             b, p.C, p.E, p.H, p.n_flows, int(reverse), int(p.bf16), stream,
             ctypes.byref(n_launched),
         )

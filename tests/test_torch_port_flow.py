@@ -12,6 +12,8 @@ differs); the bf16-weight chain is held to the Pallas test's 2e-2
 """
 
 import re
+import sys
+import threading
 import types
 
 import jax
@@ -146,18 +148,90 @@ def test_wrapper_dispatch():
     with pytest.raises(ValueError):
         fk.flow_reverse_fused(port.packed, torch.empty((B, C), device="meta"),
                               torch.empty((B, E), device="meta"))
-    assert fk.scratch_floats(port.packed, B) == B * (C // 2 + E) + 4 * B * H + 2 * B * (C // 2)
+    assert fk.workspace_bytes(C, H) == (fk._round128(fk.BARRIER_WORDS * 4)
+                                        + 2 * fk._round128(2 * fk.MAX_BATCH * C // 2 * 8)
+                                        + 2 * fk._round128(2 * fk.MAX_BATCH * H * 4))
+
+
+def test_workspace_is_kept_per_stream(monkeypatch):
+    """A stream's workspace is zeroed when made, reused with the call number
+    counting up, made anew when too small, and zeroed before numbers repeat."""
+    dev = torch.device("cpu")
+    monkeypatch.setattr(fk, "_workspaces", {})
+    monkeypatch.setattr(fk, "SEQ_LIMIT", 4)
+    work, seq = fk._workspace(dev, 1, 256)
+    assert work.dtype == torch.uint8 and work.numel() == 256 and not work.any() and seq == 1
+    work.fill_(7)
+    assert fk._workspace(dev, 1, 256) == (work, 2)
+    assert fk._workspace(dev, 2, 256)[1] == 1  # another stream, its own
+    assert fk._workspace(dev, 1, 128) == (work, 3)
+    again, seq = fk._workspace(dev, 1, 128)  # the 4th call would repeat a flag
+    assert again is work and seq == 1 and not work.any()
+    bigger, seq = fk._workspace(dev, 1, 512)
+    assert bigger.numel() == 512 and seq == 1
+
+
+def test_workspace_numbers_are_unique_across_threads(monkeypatch):
+    """Calls on one stream from many threads never draw the same call number,
+    which the kernel's flags rely on."""
+    monkeypatch.setattr(fk, "_workspaces", {})
+    dev, drawn, interval = torch.device("cpu"), [], sys.getswitchinterval()
+
+    def draw():
+        for _ in range(200):
+            drawn.append(fk._workspace(dev, 7, 64)[1])
+
+    threads = [threading.Thread(target=draw) for _ in range(16)]
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(drawn) == list(range(1, 16 * 200 + 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_tiles_hold_the_coupling_weights(dtype):
+    """Tile t of a layer is one contiguous (d_in, TILE_N) slab: the s net's
+    columns first, then the t net's, zero past the output width."""
+    _, _, _, _, _, port = _setup(True)
+    p = _packed(port, dtype)
+    coupling = port.blocks_dict()["coupling"]
+    for li, w in enumerate(p.weights()):
+        d_out = p.d_out[li]
+        d_pad = -(-d_out // fk.TILE_N) * fk.TILE_N
+        assert w.is_contiguous() and w.shape[2:] == (2 * d_pad // fk.TILE_N, w.shape[3], fk.TILE_N)
+        for pass_ in (0, 1):
+            for k, net in enumerate((f"s{pass_}", f"t{pass_}")):
+                want = torch.zeros(NF, w.shape[3], d_pad, dtype=dtype)
+                want[..., :d_out] = coupling[net][li][0].detach().transpose(1, 2).to(dtype)
+                for t in range(d_pad // fk.TILE_N):
+                    got = w[:, pass_, k * d_pad // fk.TILE_N + t]
+                    torch.testing.assert_close(
+                        got, want[..., t * fk.TILE_N:(t + 1) * fk.TILE_N], rtol=0, atol=0)
+                torch.testing.assert_close(p.dense(li, NF - 1, pass_, k), want[NF - 1, :, :d_out],
+                                           rtol=0, atol=0)
 
 
 def test_wrapper_matches_cuda_source():
-    """MAX_BATCH, TILE_N and the ctypes argument list agree with csrc/flow_chain.cu."""
+    """MAX_BATCH, TILE_N, BARRIER_WORDS, SEQ_LIMIT and the ctypes argument list
+    agree with csrc/flow_chain.cu."""
     src = (build.CSRC / "flow_chain.cu").read_text()
     assert int(re.search(r"constexpr int kMaxB = (\d+);", src).group(1)) == fk.MAX_BATCH
     assert int(re.search(r"constexpr int kTileN = (\d+);", src).group(1)) == fk.TILE_N
+    line = int(re.search(r"constexpr int kLineWords = (\d+);", src).group(1))
+    lines = int(re.search(r"constexpr int kBarrierWords = (\d+) \* kLineWords;", src).group(1))
+    assert lines * line == fk.BARRIER_WORDS
+    shift = int(re.search(r"constexpr int kFlagShift = (\d+);", src).group(1))
+    assert fk.SEQ_LIMIT == 1 << (32 - shift)
     params = re.search(r"int flow_chain\(([^)]*)\)", src).group(1).split(",")
     lib = types.SimpleNamespace(flow_chain=types.SimpleNamespace(),
                                 flow_chain_error_string=types.SimpleNamespace())
-    assert len(fk._type_library(lib).flow_chain.argtypes) == len(params) == 26
+    assert len(fk._type_library(lib).flow_chain.argtypes) == len(params) == 28
 
 
 def test_build_path_follows_source_and_flags(monkeypatch):
