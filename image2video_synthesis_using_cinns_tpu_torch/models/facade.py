@@ -1,17 +1,22 @@
 """User-facing ``Model``: checkpoint directory in, videos out (port of
-``models/facade.py``; sampling only).
+``models/facade.py``: sampling and motion transfer).
 
 * Configs are chained: ``model_path/config_stage2.yaml`` -> its
-  ``First_stage_model`` directory (``config_stage1.yaml``, decoder) and its
-  ``Conditioning_Model`` directory (``config_stage2_AE.yaml``, the frozen
-  embedder, whose checkpoint is spliced into the cINN's variables).
+  ``First_stage_model`` directory (``config_stage1.yaml``, decoder and, with
+  ``transfer=True``, the dynamics encoder) and its ``Conditioning_Model``
+  directory (``config_stage2_AE.yaml``, the frozen embedder, whose checkpoint
+  is spliced into the cINN's variables).
 * ``forward(x0, cond)``: draw nu ~ N(0, I), compute the start-frame
   embedding, run the flow inverse to z, decode, and extend autoregressively
   from the last frame until ``vid_length`` frames, truncated on the time
   axis.
-* ``compute_dtype='bfloat16'`` runs the decoder in bf16; the embedder and
-  the flow stay fp32 (``use_kernel=True`` streams the flow's weights in
-  bf16, as the JAX package's Pallas kernel does). Outputs are fp32.
+* ``transfer(seq_query, x0)``: encode the query video's motion (the
+  posterior mean of its frames after the first), run the flow forward to nu
+  under the query's first frame, then the flow inverse under each new start
+  frame, and decode as ``forward`` does.
+* ``compute_dtype='bfloat16'`` runs the decoder in bf16; the encoder, the
+  embedder and the flow stay fp32 (``use_kernel=True`` streams the flow's
+  weights in bf16, as the JAX package's Pallas kernel does). Outputs are fp32.
 
 The boundary keeps the JAX facade's layout: x0 (B, C, H, W), videos
 (B, T, C, H, W), in [-1, 1]. Entry points run on ``cuda`` unless the caller
@@ -29,6 +34,7 @@ from .. import config as cfg
 from ..utils import checkpoint as ckpt_io
 from ..utils import convert
 from .stage1.decoder import Generator
+from .stage1.resnet3d import Encoder
 from .stage2.inn import SupervisedTransformer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -54,9 +60,9 @@ def _as_tensor(a, device: torch.device) -> torch.Tensor:
 
 
 class Model:
-    def __init__(self, model_path: str, vid_length: int, seed: int = 0, use_kernel: bool = True,
-                 allow_random_init: bool = False, compute_dtype: str = "float32",
-                 device: str | torch.device | None = None):
+    def __init__(self, model_path: str, vid_length: int, transfer: bool = False, seed: int = 0,
+                 use_kernel: bool = True, allow_random_init: bool = False,
+                 compute_dtype: str = "float32", device: str | torch.device | None = None):
         config = cfg.load(_join(model_path, "config_stage2.yaml"))
         fs = config.First_stage_model
         path_stage1 = _join(fs["model_path"], fs["model_name"])
@@ -68,16 +74,22 @@ class Model:
 
         dec_ckpt = ckpt_io.find(_join(path_stage1, fs["checkpoint_decoder"]))
         flow_ckpt = ckpt_io.find(_join(model_path, "cINN"))
+        enc_ckpt = ckpt_io.find(_join(path_stage1, fs["checkpoint_encoder"])) if transfer else None
         missing = [n for n, c in (("decoder", dec_ckpt), ("cINN", flow_ckpt)) if c is None]
+        if transfer and enc_ckpt is None:
+            missing.append("encoder")
         if missing and not allow_random_init:
             raise FileNotFoundError(
                 f"no checkpoint found for {', '.join(missing)}; pass allow_random_init=True "
                 "to run with random weights"
             )
 
-        def load_weights(decoder: Generator, flow: SupervisedTransformer) -> None:
+        def load_weights(decoder: Generator, flow: SupervisedTransformer,
+                         encoder: Encoder | None) -> None:
             if dec_ckpt is not None:
                 decoder.load_state_dict(convert.to_state_dict(_variables(dec_ckpt)))
+            if enc_ckpt is not None:
+                encoder.load_state_dict(convert.to_state_dict(_variables(enc_ckpt)))
             if flow_ckpt is not None:
                 flow_vars = _variables(flow_ckpt)
                 emb_ckpt = ckpt_io.find(_join(ae_dir, cond_dic.get("checkpoint_name", "")))
@@ -85,21 +97,21 @@ class Model:
                     flow_vars = convert.splice(flow_vars, "embedder", _variables(emb_ckpt))
                 flow.load_state_dict(convert.to_state_dict(flow_vars))
 
-        self._setup(config, config_stage1, ae_cfg, vid_length, seed, use_kernel, compute_dtype,
-                    device, load_weights)
+        self._setup(config, config_stage1, ae_cfg, vid_length, transfer, seed, use_kernel,
+                    compute_dtype, device, load_weights)
 
     @classmethod
-    def from_configs(cls, config, config_stage1, ae_cfg, vid_length: int, seed: int = 0,
-                     use_kernel: bool = True, compute_dtype: str = "float32",
+    def from_configs(cls, config, config_stage1, ae_cfg, vid_length: int, transfer: bool = False,
+                     seed: int = 0, use_kernel: bool = True, compute_dtype: str = "float32",
                      device: str | torch.device | None = None) -> "Model":
         """A model with random weights drawn from ``seed``, built from configs
         held in memory (no checkpoint directory, no YAML reader needed)."""
         self = cls.__new__(cls)
-        self._setup(config, config_stage1, ae_cfg, vid_length, seed, use_kernel, compute_dtype,
-                    device, None)
+        self._setup(config, config_stage1, ae_cfg, vid_length, transfer, seed, use_kernel,
+                    compute_dtype, device, None)
         return self
 
-    def _setup(self, config, config_stage1, ae_cfg, vid_length, seed, use_kernel,
+    def _setup(self, config, config_stage1, ae_cfg, vid_length, transfer, seed, use_kernel,
                compute_dtype, device, load_weights) -> None:
         self.config = config
         self.config_stage1 = config_stage1
@@ -117,11 +129,13 @@ class Model:
             flow = SupervisedTransformer.from_configs(
                 config, config_stage1.Decoder, ae_cfg, use_kernel=use_kernel
             )
+            encoder = Encoder.from_config(config_stage1.Encoder) if transfer else None
         if load_weights is not None:
-            load_weights(decoder, flow)
+            load_weights(decoder, flow, encoder)
         flow.flow.pack_kernel_weights()
         self.decoder = decoder.to(self.device, self.compute_dtype).eval()
         self.flow = flow.to(self.device).eval()
+        self.encoder = None if encoder is None else encoder.to(self.device).eval()
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
 
@@ -136,6 +150,18 @@ class Model:
         dt = self.compute_dtype
         return self.decoder(img.to(dt), z.to(dt)).float()
 
+    def _render(self, x0: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """Decode z from x0 and extend autoregressively from the last frame to
+        ``vid_length`` frames, truncated on the time axis: (B, T, C, H, W)."""
+        seq = self._decode(x0, z)  # (B, 3, T, H, W)
+        base = self.decoder.base_frames
+        n_repeats = max(0, -(-self.vid_length // base) - 1)
+        chunks = [seq]
+        for _ in range(n_repeats):
+            chunks.append(self._decode(chunks[-1][:, :, -1], z))
+        seq = torch.cat(chunks, dim=2)[:, :, : self.vid_length]
+        return seq.permute(0, 2, 1, 3, 4).contiguous()
+
     @torch.inference_mode()
     def sample(self, x_0, cond=None, residual=None) -> tuple[torch.Tensor, torch.Tensor]:
         """x_0: (B, C, H, W) in [-1, 1] -> (video (B, T, C, H, W), z (B, z_dim)).
@@ -148,14 +174,7 @@ class Model:
             residual = self.draw_residual(b)
         conds = [x0] if cond is None else [x0, _as_tensor(cond, self.device)]
         z = self.flow.reverse(_as_tensor(residual, self.device), conds).reshape(b, -1)
-        seq = self._decode(x0, z)  # (B, 3, T, H, W)
-        base = self.decoder.base_frames
-        n_repeats = max(0, -(-self.vid_length // base) - 1)
-        chunks = [seq]
-        for _ in range(n_repeats):
-            chunks.append(self._decode(chunks[-1][:, :, -1], z))
-        seq = torch.cat(chunks, dim=2)[:, :, : self.vid_length]
-        return seq.permute(0, 2, 1, 3, 4).contiguous(), z
+        return self._render(x0, z), z
 
     def forward(self, x_0, cond=None, residual=None) -> torch.Tensor:
         """x_0: (B, C, H, W) in [-1, 1] -> video (B, T, C, H, W) in [-1, 1]."""
@@ -163,6 +182,32 @@ class Model:
 
     def __call__(self, x_0, cond=None, residual=None) -> torch.Tensor:
         return self.forward(x_0, cond, residual)
+
+    @torch.inference_mode()
+    def transfer_sample(self, seq_query, x_0) -> tuple[torch.Tensor, torch.Tensor]:
+        """seq_query: ONE query video (1, T, C, H, W); x_0: (N, C, H, W), both in
+        [-1, 1] -> (video (N, T', C, H, W), z_ref (N, z_dim)).
+
+        The query's motion is the encoder's posterior mean of its frames after
+        the first, as in the JAX facade (its eps draw does not reach the
+        video); the flow maps it to one nu under the query's first frame, and
+        that nu is sampled under every start frame."""
+        if self.encoder is None:
+            raise RuntimeError("construct the Model with transfer=True")
+        q = _as_tensor(seq_query, self.device)
+        if q.dim() != 5 or q.shape[0] != 1:
+            raise ValueError(f"expected one query video (1, T, C, H, W), got {tuple(q.shape)}")
+        x0 = _as_tensor(x_0, self.device)
+        n = x0.shape[0]
+        _, mu, _ = self.encoder(q[:, 1:].permute(0, 2, 1, 3, 4), self._generator)
+        nu, _ = self.flow(mu, [q[:, 0]])
+        nu = nu.reshape(1, -1).repeat(n, 1)
+        z_ref = self.flow.reverse(nu, [x0]).reshape(n, -1)
+        return self._render(x0, z_ref), z_ref
+
+    def transfer(self, seq_query, x_0) -> torch.Tensor:
+        """seq_query (1, T, C, H, W), x_0 (N, C, H, W) -> video (N, T', C, H, W)."""
+        return self.transfer_sample(seq_query, x_0)[0]
 
 
 def _variables(path: str) -> dict:

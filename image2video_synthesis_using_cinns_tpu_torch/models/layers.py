@@ -1,5 +1,6 @@
 """Shared layers (port of ``models/layers.py``): convolution and dense layers
-whose spectral norm is folded into the weight at load, GroupNorm, pooling.
+whose spectral norm is folded into the weight at load, GroupNorm, BatchNorm
+and ActNorm at inference, pooling.
 
 Weights use torch's layout: a conv weight is (out, in, *k), a dense weight
 is (out, in). Random initialisation follows torch's defaults (uniform in
@@ -92,10 +93,50 @@ class GroupNorm(nn.Module):
         return F.group_norm(x.float(), self.num_groups, w, b, self.eps).to(x.dtype)
 
 
+def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A (C,) vector shaped to broadcast over (B, C, *spatial)."""
+    return v.reshape((1, -1) + (1,) * (x.ndim - 2))
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm in eval mode: ``(x - mean) * rsqrt(var + eps) * weight + bias``
+    from the running statistics (the JAX layer's ``batch_stats`` collection,
+    carried to the ``mean``/``var`` buffers by the weight bridge). Computed in
+    float32 and cast back to the input's dtype."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("mean", torch.zeros(num_features))
+        self.register_buffer("var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        y = (x32 - _per_channel(self.mean, x)) * _per_channel(torch.rsqrt(self.var + self.eps), x)
+        return (y * _per_channel(self.weight, x) + _per_channel(self.bias, x)).to(x.dtype)
+
+
+class ActNormImage(nn.Module):
+    """Per-channel affine ``scale * (x + loc)`` at inference; the data-dependent
+    initialisation of ``loc``/``scale`` belongs to training."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.loc = nn.Parameter(torch.zeros(num_features))
+        self.scale = nn.Parameter(torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _per_channel(self.scale, x) * (x + _per_channel(self.loc, x))
+
+
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, slope)
 
 
-def max_pool(x: torch.Tensor, window: int, stride: int, padding: int) -> torch.Tensor:
-    """2-D max pool with symmetric padding that never wins (-inf)."""
-    return F.max_pool2d(x, window, stride, padding)
+def max_pool(x: torch.Tensor, window, stride, padding) -> torch.Tensor:
+    """2-D (B, C, H, W) or 3-D (B, C, T, H, W) max pool with symmetric padding
+    that never wins (-inf); window, stride and padding are ints or per-axis."""
+    pool = F.max_pool2d if x.ndim == 4 else F.max_pool3d
+    return pool(x, window, stride, padding)

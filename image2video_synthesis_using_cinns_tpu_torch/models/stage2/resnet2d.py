@@ -1,12 +1,13 @@
 """2-D ResNet conditioning encoder (port of ``models/stage2/resnet2d.py``).
 
-A torchvision-style resnet18/34/50/101 trunk with InstanceNorm ('in') as
-its norm, and a 1x1 conv head producing 2 * z_dim posterior parameters;
+A torchvision-style resnet18/34/50/101 trunk whose norm is InstanceNorm
+('in'), BatchNorm from running statistics ('bn') or ActNorm ('an'), as the
+config says, and a 1x1 conv head producing 2 * z_dim posterior parameters;
 ``encode`` wraps them in a ``DiagonalGaussianDistribution`` (sampling uses its
 mode, so the config's ``deterministic`` flag does not matter here). Inputs are
-(B, 3, H, W) in [-1, 1], fed to the trunk as they are.
-
-The 'bn' (BatchNorm) and 'an' (ActNorm) norms are not ported yet.
+(B, 3, H, W) in [-1, 1], fed to the trunk as they are. Each norm keeps the JAX
+module's name (``bn1``, ``downsample_norm``, ...) and holds its layer as ``bn``
+or ``an``, so the weight bridge maps paths to keys one to one.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.norms import instance_norm
-from ..layers import SNConv, max_pool
+from ..layers import ActNormImage, BatchNorm, SNConv, max_pool
 from .distributions import DiagonalGaussianDistribution
 
 TV_LAYERS = {
@@ -27,48 +28,69 @@ TV_LAYERS = {
 }
 
 
-def _check_norm(norm: str) -> None:
-    if norm in ("bn", "an"):
-        raise NotImplementedError(f"embedder norm {norm!r} is not ported yet (only 'in')")
-    if norm != "in":
-        raise ValueError(norm)
+class _Norm2D(nn.Module):
+    """InstanceNorm without affine ('in'), eval-mode BatchNorm ('bn') or ActNorm ('an')."""
+
+    def __init__(self, kind: str, features: int):
+        super().__init__()
+        if kind not in ("in", "bn", "an"):
+            raise ValueError(f"unknown embedder norm {kind!r}")
+        self.kind = kind
+        if kind == "bn":
+            self.bn = BatchNorm(features)
+        elif kind == "an":
+            self.an = ActNormImage(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "in":
+            return instance_norm(x)
+        return self.bn(x) if self.kind == "bn" else self.an(x)
 
 
 class _BasicBlock2D(nn.Module):
     expansion = 1
 
-    def __init__(self, inplanes: int, planes: int, stride: int, has_downsample: bool):
+    def __init__(self, inplanes: int, planes: int, stride: int, norm: str, has_downsample: bool):
         super().__init__()
         self.conv1 = SNConv(inplanes, planes, (3, 3), stride, 1, bias=False)
+        self.bn1 = _Norm2D(norm, planes)
         self.conv2 = SNConv(planes, planes, (3, 3), 1, 1, bias=False)
-        self.downsample_conv = (SNConv(inplanes, planes, (1, 1), stride, bias=False)
-                                if has_downsample else None)
+        self.bn2 = _Norm2D(norm, planes)
+        self.downsample_conv = self.downsample_norm = None
+        if has_downsample:
+            self.downsample_conv = SNConv(inplanes, planes, (1, 1), stride, bias=False)
+            self.downsample_norm = _Norm2D(norm, planes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(instance_norm(self.conv1(x)))
-        out = instance_norm(self.conv2(out))
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
         if self.downsample_conv is not None:
-            x = instance_norm(self.downsample_conv(x))
+            x = self.downsample_norm(self.downsample_conv(x))
         return F.relu(out + x)
 
 
 class _Bottleneck2D(nn.Module):
     expansion = 4
 
-    def __init__(self, inplanes: int, planes: int, stride: int, has_downsample: bool):
+    def __init__(self, inplanes: int, planes: int, stride: int, norm: str, has_downsample: bool):
         super().__init__()
         self.conv1 = SNConv(inplanes, planes, (1, 1), bias=False)
+        self.bn1 = _Norm2D(norm, planes)
         self.conv2 = SNConv(planes, planes, (3, 3), stride, 1, bias=False)
+        self.bn2 = _Norm2D(norm, planes)
         self.conv3 = SNConv(planes, planes * 4, (1, 1), bias=False)
-        self.downsample_conv = (SNConv(inplanes, planes * 4, (1, 1), stride, bias=False)
-                                if has_downsample else None)
+        self.bn3 = _Norm2D(norm, planes * 4)
+        self.downsample_conv = self.downsample_norm = None
+        if has_downsample:
+            self.downsample_conv = SNConv(inplanes, planes * 4, (1, 1), stride, bias=False)
+            self.downsample_norm = _Norm2D(norm, planes * 4)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(instance_norm(self.conv1(x)))
-        out = F.relu(instance_norm(self.conv2(out)))
-        out = instance_norm(self.conv3(out))
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
         if self.downsample_conv is not None:
-            x = instance_norm(self.downsample_conv(x))
+            x = self.downsample_norm(self.downsample_conv(x))
         return F.relu(out + x)
 
 
@@ -77,22 +99,24 @@ class ResNet2D(nn.Module):
 
     def __init__(self, encoder_type: str = "resnet50", norm: str = "in"):
         super().__init__()
-        _check_norm(norm)
         kind, layers = TV_LAYERS[encoder_type]
         block = _BasicBlock2D if kind == "basic" else _Bottleneck2D
         self.conv1 = SNConv(3, 64, (7, 7), 2, 3, bias=False)
+        self.bn1 = _Norm2D(norm, 64)
         inplanes = 64
         for stage, planes in enumerate((64, 128, 256, 512)):
             stride = 1 if stage == 0 else 2
             needs_ds = stride != 1 or inplanes != planes * block.expansion
-            self.add_module(f"layer{stage + 1}_block0", block(inplanes, planes, stride, needs_ds))
+            self.add_module(f"layer{stage + 1}_block0",
+                            block(inplanes, planes, stride, norm, needs_ds))
             inplanes = planes * block.expansion
             for b in range(1, layers[stage]):
-                self.add_module(f"layer{stage + 1}_block{b}", block(inplanes, planes, 1, False))
+                self.add_module(f"layer{stage + 1}_block{b}",
+                                block(inplanes, planes, 1, norm, False))
         self.out_features = inplanes
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(instance_norm(self.conv1(x)))
+        x = F.relu(self.bn1(self.conv1(x)))
         x = max_pool(x, 3, 2, 1)
         for name, mod in self.named_children():
             if name.startswith("layer"):

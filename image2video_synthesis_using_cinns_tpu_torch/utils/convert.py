@@ -1,9 +1,9 @@
 """Weight bridge: a JAX-package variables tree -> a port module's state_dict.
 
 The input is the tree of dicts and numpy arrays that ``checkpoint.load``
-returns (``{"params": ..., "spectral": ..., "buffers": ...}``). This is the
-inverse of the JAX package's torch -> JAX conversion
-(``utils/convert.py:34-45``, ``t_conv``/``t_linear``). The port's modules
+returns (``{"params": ..., "spectral": ..., "buffers": ..., "batch_stats":
+..., "actnorm_stats": ...}``). This is the inverse of the JAX package's
+torch -> JAX conversion (``utils/convert.py:34-45``, ``t_conv``/``t_linear``). The port's modules
 carry the JAX modules' names, so a path in the tree is a state_dict key.
 Leaves are recognised by the set of names in their dict:
 
@@ -17,7 +17,12 @@ Leaves are recognised by the set of names in their dict:
 * ``{loc, scale}``: the flow's stacked ActNorm, kept as it is.
 
 ``buffers`` leaves (the flow's shuffle permutations) are copied as int64:
-they are always taken from the tree, never drawn again.
+they are always taken from the tree, never drawn again. ``batch_stats``
+leaves (a BatchNorm's running ``mean``/``var``) become the port's BatchNorm
+buffers of the same names. ``actnorm_stats`` (``loc_init``, ``scale_init``,
+``initialized``) is the bookkeeping of ActNorm's data-dependent
+initialisation; inference reads the ``loc``/``scale`` params, so it is
+dropped.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 
 from ..ops import spectral
 
-_COLLECTIONS = {"params", "spectral", "buffers"}
+_COLLECTIONS = {"params", "spectral", "buffers", "batch_stats", "actnorm_stats"}
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -78,12 +83,16 @@ def _walk(tree: dict, spectral_tree: dict, path: tuple, out: dict) -> None:
         _walk(sub, (spectral_tree or {}).get(name, {}), path + (name,), out)
 
 
-def _walk_buffers(tree: dict, path: tuple, out: dict) -> None:
+def _walk_leaves(tree: dict, path: tuple, out: dict, convert) -> None:
     for name, sub in tree.items():
         if isinstance(sub, dict):
-            _walk_buffers(sub, path + (name,), out)
+            _walk_leaves(sub, path + (name,), out, convert)
         else:
-            out[_key(path, name)] = torch.from_numpy(np.asarray(sub).astype(np.int64))
+            out[_key(path, name)] = convert(sub)
+
+
+def _int64(a: Any) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).astype(np.int64))
 
 
 def to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
@@ -93,7 +102,8 @@ def to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
         raise ValueError(f"collections the port cannot load yet: {sorted(unknown)}")
     out: dict[str, torch.Tensor] = {}
     _walk(variables.get("params", {}), variables.get("spectral", {}), (), out)
-    _walk_buffers(variables.get("buffers", {}), (), out)
+    _walk_leaves(variables.get("buffers", {}), (), out, _int64)
+    _walk_leaves(variables.get("batch_stats", {}), (), out, _tensor)
     return out
 
 

@@ -1,9 +1,9 @@
 """The torch port's start-frame embedder and cINN wrapper against the JAX
-package, on the CPU: ``ResnetEncoder`` (resnet18, resnet50; InstanceNorm)
-at 32 px, and ``SupervisedTransformer`` reverse/forward with endpoint
-control off and on. Variables are drawn with numpy into the JAX modules'
-shapes (no XLA compile of ``init``) and carried to the port by the weight
-bridge.
+package, on the CPU: ``ResnetEncoder`` (resnet18, resnet50; InstanceNorm,
+BatchNorm from running statistics, ActNorm) at 32 px, and
+``SupervisedTransformer`` reverse/forward with endpoint control off and on.
+Variables are drawn with numpy into the JAX modules' shapes (no XLA compile
+of ``init``) and carried to the port by the weight bridge.
 
 Tolerance: 1e-4 on the posterior parameters and the flow outputs (fp32;
 a resnet50 stacks 53 convs with instance norms between them).
@@ -26,8 +26,9 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 
 def _numpy_init(module, *args, seed=0):
     """Variables in ``module``'s shapes, drawn with numpy: kernels and the
-    flow's stacked weights U(+-1/sqrt(fan_in)), ActNorm near identity, small
-    biases, and true permutations for the flow's shuffle buffers."""
+    flow's stacked weights U(+-1/sqrt(fan_in)), ActNorm near identity,
+    positive BatchNorm running variances, small biases and means, and true
+    permutations for the flow's shuffle buffers."""
     rng = np.random.default_rng(seed)
 
     def leaf(path, s):
@@ -37,6 +38,8 @@ def _numpy_init(module, *args, seed=0):
             a = rng.uniform(-1, 1, s.shape) / np.sqrt(fan_in)
         elif name == "scale":
             a = 1.0 + 0.1 * rng.standard_normal(s.shape)
+        elif name == "var":
+            a = rng.uniform(0.5, 1.5, s.shape)
         else:
             a = 0.1 * rng.standard_normal(s.shape)
         return a.astype(s.dtype)
@@ -59,12 +62,13 @@ def _cf(a):
     return torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 1)))
 
 
+@pytest.mark.parametrize("norm", ["in", "bn", "an"])
 @pytest.mark.parametrize("encoder_type", ["resnet18", "resnet50"])
-def test_resnet_encoder(encoder_type):
-    jm = JRE(z_dim=8, encoder_type=encoder_type, norm="in")
+def test_resnet_encoder(encoder_type, norm):
+    jm = JRE(z_dim=8, encoder_type=encoder_type, norm=norm)
     img = _img(2)
     v = _numpy_init(jm, jnp.asarray(img))
-    port = ResnetEncoder(8, encoder_type, "in")
+    port = ResnetEncoder(8, encoder_type, norm).eval()
     port.load_state_dict(to_state_dict(v))
     with torch.no_grad():
         out = port(_cf(img)).numpy()
@@ -73,11 +77,6 @@ def test_resnet_encoder(encoder_type):
     assert out.shape == (2, 16)
     np.testing.assert_allclose(out, ref, **TOL)
     np.testing.assert_allclose(mode, ref[:, :8], **TOL)
-
-
-def test_embedder_norms_not_ported_raise():
-    with pytest.raises(NotImplementedError):
-        ResnetEncoder(8, "resnet18", "bn")
 
 
 @pytest.mark.parametrize("control", [False, True])
