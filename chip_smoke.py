@@ -29,6 +29,20 @@ Phases (any failure raises and the script exits non-zero):
    in a second counted window: both chains must have launched, one device
    kernel each. Checks: videos, z against the plain chains, z the same
    across decoders, and the query's own motion back through its own frame.
+   4c. Offline evaluation at the full BAIR preset: synthetic BAIR test
+   splits (50 and 16 clips of 30 64x64 frames drawn from a seed, no image
+   codec) packed into FrameStores; full-size I3D (kinetics, DT-16),
+   Inception and LPIPS with random weights from a seed, written with the
+   port's ``save`` where the loaders look for them. The eval CLIs' bodies
+   run each in its own counted window: synthesis quality (fp32 decoder,
+   bs=6, 16 frames, FID+LPIPS+FVD+DTFVD; 9 chains) and diversity (bf16
+   decoder, 5 realisations, VGG+I3D+DTI3D; 15 chains), one device kernel per
+   chain and no forward chain. Checks: every metric finite; FVD, DTFVD and
+   FID of a set against itself near 0 (``self_distance``), LPIPS(x, x) = 0;
+   each backbone on the card against the same module on the CPU
+   (``BACKBONE_TOL``); the stream's Fréchet values against activations taken
+   at another batch size (``BATCHING_TOL``). Then the eval's wall time and
+   clips/s for each body and its stages, each timed alone.
 5. Timings: each kernel's median ms beside its plain version and its bound;
    the reverse chain at B = 1, 6 and 16; where a chain's time goes, from the
    timeline build (per layer and pass, and the kernel's own span), and a
@@ -39,13 +53,14 @@ Phases (any failure raises and the script exits non-zero):
    reverse at B=6, decoder), and both kernels at the landscape shape beside
    their plain versions and bounds. Each line carries the card's name and
    power limit.
-6. ``torch.profiler`` traces of two bf16 ``Model.forward`` calls and of two
-   bf16 landscape ``Model.transfer`` calls: the top device kernels, the flow
+6. ``torch.profiler`` traces of two bf16 ``Model.forward`` calls, of two
+   bf16 landscape ``Model.transfer`` calls and of two synthesis-eval steps
+   (sample a batch, all four backbones): the top device kernels, the flow
    chain's share, the device's idle share, and the host and device time
    before the first flow chain (the embedder; in transfer, the encoder and
    the query's embedding). The traces are written to ``smoke_out/`` (listed
    in ``.gitignore``).
-7. A ``{"kernels": [...]}`` line (launches summed over both counted
+7. A ``{"kernels": [...]}`` line (launches summed over the four counted
    windows), then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is visible, and when the
@@ -59,6 +74,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -85,6 +101,17 @@ PRESET = "bair"  # the sampling path's model: full width, random weights
 TRANSFER_PRESET = "landscape"  # the transfer path's model: full width, random weights
 QUERY_FRAMES = 17  # the encoder sees the 16 after the first
 BATCH = 6
+# phase 4c, offline evaluation at the BAIR preset: a synthetic test split of
+# 30-frame 64x64 clips; 50 clips give the synthesis run a ragged last batch
+# (9 batches of 6, the last of 2), the FVD x16 drop (keeps 48) and the DTFVD
+# drop (keeps 40); diversity takes 16 clips of 5 realisations (3 batches)
+EVAL_CLIPS, DIVERSITY_CLIPS, N_REALIZ, EVAL_SEQ = 50, 16, 5, 16
+BAIR_FRAMES, BAIR_PX = 30, 64
+# card against CPU, relative to the largest output: fp32 through 20 (VGG) to
+# 100 (Inception) layers, sums in another order on each side, TF32 off
+BACKBONE_TOL = 1e-4
+# the stream's Fréchet values against activations taken at another batch size
+BATCHING_TOL = 1e-6
 
 
 def log(*a):
@@ -390,6 +417,321 @@ def phase_transfer():
     check("transfer query_motion_roundtrip", z_back, mu, 1e-2)
     check("landscape sample z_vs_plain", sampled[1], z_sample_plain, TOL["bf16"])
     return models, q, x0, launches, device_launches
+
+
+def seeded_imread(path: str):
+    """A BAIR-like 64x64 frame drawn from a seed: a noise background fixed per
+    clip and an 8x8 square that moves one step per frame, both from the crc32
+    of the clip's ``traj_<k>/<n>`` (not of the temporary root, so every run
+    sees the same data); the frame number is the file's stem. No image codec
+    is needed."""
+    import zlib
+
+    import numpy as np
+
+    *_, traj, clip, name = path.split("/")
+    rng = np.random.default_rng(zlib.crc32(f"{traj}/{clip}".encode()))
+    frame = rng.integers(0, 60, (BAIR_PX, BAIR_PX, 3), dtype=np.uint8)
+    y0, x0 = rng.integers(0, BAIR_PX - 8, 2)
+    dy, dx = rng.integers(-1, 2, 2)
+    k = int(name.split(".")[0])
+    y = int(np.clip(y0 + k * dy, 0, BAIR_PX - 8))
+    x = int(np.clip(x0 + k * dx, 0, BAIR_PX - 8))
+    frame[y:y + 8, x:x + 8] = rng.integers(120, 256, 3, dtype=np.uint8)
+    return frame
+
+
+def bair_split(root: Path, n_clips: int) -> str:
+    """``<root>/test/traj_<k>/<n>/``: the clip directories of a BAIR test split
+    (the frames come from ``seeded_imread``, packed into a FrameStore)."""
+    for i in range(n_clips):
+        (root / "test" / f"traj_{i // 10}" / str(i % 10)).mkdir(parents=True)
+    return str(root) + "/"
+
+
+def random_backbone(module, seed: int):
+    """Full-size backbone weights from a seed: each conv kernel N(0, 2/fan_in)
+    (activations stay of order one through the depth; the modules' own init
+    shrinks them about 6x a layer), biases zero, frozen BN the identity;
+    LPIPS's 1x1 heads non-negative, as trained ones are."""
+    import math
+
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.dim() < 3:
+                p.zero_()
+                continue
+            w = torch.randn(p.shape, generator=g) * math.sqrt(2.0 / p[0].numel())
+            p.copy_(w.abs() if name.startswith("lin") else w)
+    return module
+
+
+def write_backbones(models_dir: Path) -> None:
+    """Random full-size I3D (kinetics, DT-16), Inception and LPIPS weights,
+    written with the port's ``save`` where ``load_model``, ``load_inception``
+    and ``load_lpips`` look for them."""
+    from image2video_synthesis_using_cinns_tpu_torch.metrics import fid, fvd, lpips_eval
+    from image2video_synthesis_using_cinns_tpu_torch.metrics.inception import InceptionV3FID
+    from image2video_synthesis_using_cinns_tpu_torch.models.backbones.lpips import LPIPS
+    from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint, convert
+
+    for rel, module, seed in ((fvd.WEIGHT_FILES["kinetics"], fvd.build("kinetics"), 11),
+                              (fvd.WEIGHT_FILES["dt16"], fvd.build("dt16"), 12),
+                              (fid.WEIGHT_FILE, InceptionV3FID(), 13),
+                              (lpips_eval.WEIGHT_FILE, LPIPS(), 14)):
+        path = models_dir / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        variables = convert.to_variables(random_backbone(module, seed).state_dict())
+        checkpoint.save(str(path), {"state_dict": variables})
+
+
+def check_rel(key: str, a, b, tol: float) -> float:
+    """max |a - b| over max |b|, held to ``tol``."""
+    import torch
+
+    a, b = a.double().cpu(), b.double().cpu()
+    scale = float(b.abs().max())
+    rel = float((a - b).abs().max()) / scale
+    ok = rel <= tol and bool(torch.isfinite(a).all()) and scale > 0
+    log(f"  {key}: max|b|={scale:.4g} rel_err={rel:.3e} (bound {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{key}: disagrees beyond tolerance")
+    return rel
+
+
+def self_distance(key: str, acts) -> float:
+    """The Fréchet distance of a set of activation rows to itself, held to
+    |d| <= 2e-6 D + 1e-6 tr(Sigma): the 1e-6 offset on both covariances alone
+    gives -2e-6 D, and float64 eigendecompositions of a covariance of rank
+    below D leave about 1e-7 tr(Sigma)."""
+    import numpy as np
+
+    from image2video_synthesis_using_cinns_tpu_torch.metrics.frechet import (
+        frechet_from_activations,
+    )
+
+    d = frechet_from_activations(acts, acts)
+    tr = float(np.trace(np.cov(np.asarray(acts, np.float64), rowvar=False)))
+    bound = 2e-6 * acts.shape[1] + 1e-6 * tr
+    ok = abs(d) <= bound
+    log(f"  {key}(x, x) over {acts.shape[0]} rows of {acts.shape[1]}: {d:.6g} "
+        f"(bound {bound:.4g}, tr Sigma {tr:.6g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{key}(x, x) is not ~0")
+    return d
+
+
+def eval_window(label: str, run, expected_chains: int):
+    """Run ``run()`` with the launch counts zeroed just before and read just
+    after: one reverse chain per ``Model.forward``, one device kernel per
+    chain, no forward chain."""
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    results = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, device_launches = dict(fk.launches), dict(fk.device_launches)
+    log(f"  {label} chain launches: {launches}; device kernels they launched: {device_launches}")
+    want = {"flow_reverse_fused": expected_chains, "flow_forward_fused": 0}
+    if launches != want:
+        raise AssertionError(f"{label}: chain launches {launches}, expected {want}")
+    if device_launches != launches:
+        raise AssertionError(f"{label}: a chain launched other than one device kernel")
+    return results, wall, launches, device_launches
+
+
+def phase_eval(card: str, models, tmp: Path):
+    """Offline evaluation at the full BAIR preset: both eval CLI bodies with
+    the port's loader, augment, FrameStore and full-size random backbones,
+    each in its own counted window; then the checks and the stage times."""
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.cli import eval_diversity, eval_synthesis_quality
+    from image2video_synthesis_using_cinns_tpu_torch.data import get_eval_loader
+    from image2video_synthesis_using_cinns_tpu_torch.data.augment import build_augment
+    from image2video_synthesis_using_cinns_tpu_torch.data.framestore import FrameStore
+    from image2video_synthesis_using_cinns_tpu_torch.data.loader import Loader
+    from image2video_synthesis_using_cinns_tpu_torch.metrics import fid, fvd, lpips_eval
+    from image2video_synthesis_using_cinns_tpu_torch.metrics import streaming_eval as se
+    from image2video_synthesis_using_cinns_tpu_torch.metrics.frechet import (
+        frechet_from_activations,
+    )
+
+    t0 = time.perf_counter()
+    models_dir = tmp / "models"
+    write_backbones(models_dir)
+    loaders = {}
+    for name, n_clips, frames, model in (("synthesis", EVAL_CLIPS, EVAL_SEQ + 1, models["float32"]),
+                                          ("diversity", DIVERSITY_CLIPS, EVAL_SEQ,
+                                           models["bfloat16"])):
+        model.vid_length = EVAL_SEQ
+        dataset = get_eval_loader("bair", frames, bair_split(tmp / name, n_clips), model.config)
+        store = FrameStore.build(dataset, str(tmp / f"{name}.fst"), imread=seeded_imread)
+        loaders[name] = Loader(dataset, BATCH, shuffle=False, drop_last=False, workers=8,
+                               framestore=store)
+    log(f"  set-up {time.perf_counter() - t0:.2f} s: backbone weights written to {models_dir}, "
+        f"two BAIR test splits packed ({EVAL_CLIPS} and {DIVERSITY_CLIPS} clips of "
+        f"{BAIR_FRAMES} {BAIR_PX}x{BAIR_PX} frames); framestore backend: "
+        f"{loaders['synthesis'].framestore.backend}")
+    root = str(models_dir)
+
+    # -- synthesis quality: fp32 decoder (the CLI's default) ----------------
+    stream = se.SynthesisQualityStream(want_fid=True, want_lpips=True, want_fvd=True,
+                                       want_dtfvd=True, seq_length=EVAL_SEQ, weights_root=root,
+                                       device=DEVICE)
+    clips = []
+    add_batch = stream.add_batch
+
+    def keep(fake, real):  # the clips, for the batching check after the window
+        clips.append((fake.clone(), real.clone()))
+        add_batch(fake, real)
+
+    stream.add_batch = keep
+    model = models["float32"]
+    synth, s_wall, s_launches, s_dev = eval_window(
+        "synthesis", lambda: eval_synthesis_quality.evaluate(model, loaders["synthesis"], stream,
+                                                             "bair"),
+        -(-EVAL_CLIPS // BATCH))
+    log(f"  [{card}] eval_synthesis_quality body, bair bs={BATCH} seq_length={EVAL_SEQ} fp32 "
+        f"decoder, FID+LPIPS+FVD+DTFVD over {EVAL_CLIPS} clips: {s_wall:.3f} s, "
+        f"{EVAL_CLIPS / s_wall:.2f} clips/s; {synth}")
+
+    # -- diversity: bf16 decoder ---------------------------------------------
+    dstream = se.DiversityStream(N_REALIZ, want_vgg=True, want_i3d=True, want_dti3d=True,
+                                 seq_length=EVAL_SEQ, weights_root=root, device=DEVICE)
+    div, d_wall, d_launches, d_dev = eval_window(
+        "diversity", lambda: eval_diversity.evaluate(models["bfloat16"], loaders["diversity"],
+                                                     dstream, N_REALIZ),
+        -(-DIVERSITY_CLIPS // BATCH) * N_REALIZ)
+    log(f"  [{card}] eval_diversity body, bair bs={BATCH} n_realiz={N_REALIZ} "
+        f"seq_length={EVAL_SEQ} bf16 decoder, VGG+I3D+DTI3D over {DIVERSITY_CLIPS} clips: "
+        f"{d_wall:.3f} s, {DIVERSITY_CLIPS / d_wall:.2f} clips/s; {div}")
+
+    # -- checks ----------------------------------------------------------------
+    for name, v in {**synth, **div}.items():
+        if not np.isfinite(v):
+            raise AssertionError(f"{name} is not finite: {v}")
+    log(f"  every metric finite: {sorted({**synth, **div})}")
+    for name in ("FID", "FVD", "DTFVD"):
+        real = stream.activations(name)[1]
+        n = real.shape[0]  # the stream's populations
+        keep_n = {"FID": se._tail_drop(n, 50), "FVD": n // 16 * 16,
+                  "DTFVD": se._tail_drop(n, 40)}[name]
+        self_distance(name, real[:keep_n])
+    fake_all = torch.cat([f for f, _ in clips])
+    real_all = torch.cat([r for _, r in clips])
+    with torch.inference_mode():
+        same = stream.lpips(real_all[0], real_all[0])
+    log(f"  LPIPS(x, x) over {same.numel()} frames: max {float(same.abs().max())}")
+    if float(same.abs().max()) != 0.0:
+        raise AssertionError("LPIPS(x, x) is not 0")
+
+    # the same backbones on the card and on the CPU
+    i3d = {k: (fvd.load_model(k, root, DEVICE), fvd.load_model(k, root, "cpu"))
+           for k in ("kinetics", "dt16")}
+    clip = real_all[:1]
+    for kind, (card_m, cpu_m) in i3d.items():
+        x = clip if kind == "kinetics" else fvd.prep_dt_time(clip, 16)
+        check_rel(f"I3D {kind} card vs CPU, 1 clip", fvd.activation_fn(card_m)(x),
+                  fvd.activation_fn(cpu_m)(x.cpu()), BACKBONE_TOL)
+    frames, other = real_all[0, :4], fake_all[0, :4]
+    inc_cpu = fid.load_inception(root, "cpu")
+    lp_cpu = lpips_eval.load_lpips(root, "cpu")
+    vgg_cpu = se.vgg_features("cpu")
+    x224 = torch.nn.functional.interpolate(frames, size=(224, 224), mode="bilinear",
+                                           antialias=True)
+    with torch.inference_mode():
+        check_rel("Inception card vs CPU, 4 frames", stream.inception(frames),
+                  inc_cpu(frames.cpu()), BACKBONE_TOL)
+        check_rel("LPIPS card vs CPU, 4 frame pairs", stream.lpips(other, frames),
+                  lp_cpu(other.cpu(), frames.cpu()), BACKBONE_TOL)
+        for lvl, (a, b) in enumerate(zip(dstream.vgg(x224), vgg_cpu(x224.cpu()))):
+            check_rel(f"VGG relu{lvl + 1} tap card vs CPU, 4 frames", a, b, BACKBONE_TOL)
+
+    # batching: the stream's values against activations taken at another batch
+    # size, 10 clips (so every clip is scored: EVAL_CLIPS is a multiple of 10)
+    kin, n = i3d["kinetics"][0], fake_all.shape[0]
+    if n % 10:
+        raise ValueError(f"the batching check needs a multiple of 10 clips, not {n}")
+    acts = {
+        "FVD": [fvd.get_activations(kin, v, 10)[:n // 16 * 16] for v in (fake_all, real_all)],
+        "DTFVD": [fvd.get_activations(i3d["dt16"][0], fvd.prep_dt_time(v, 16), 10)
+                  [:se._tail_drop(n, 40)] for v in (fake_all, real_all)],
+        "FID": [fid.get_activations(stream.inception, v.flatten(0, 1), 50)
+                for v in (fake_all, real_all)],
+    }
+    for name, (a1, a2) in acts.items():
+        redo = frechet_from_activations(a1, a2)
+        rel = abs(redo - synth[name]) / abs(synth[name])
+        log(f"  {name} from the stream (batches of {BATCH} clips) {synth[name]:.10g}, from "
+            f"activations at batch size {50 if name == 'FID' else 10} {redo:.10g}: rel "
+            f"{rel:.3e} (bound {BATCHING_TOL:g}) {'ok' if rel <= BATCHING_TOL else 'FAIL'}")
+        if rel > BATCHING_TOL:
+            raise AssertionError(f"{name} depends on the batch size")
+
+    # -- stage times, each alone ---------------------------------------------
+    augment = build_augment(BAIR_PX, None, False, False)
+    t0 = time.perf_counter()
+    n_batches = 0
+    for batch in loaders["synthesis"].epoch_iter(0):
+        augment(torch.from_numpy(batch["seq_raw"]).to(DEVICE))
+        n_batches += 1
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3 / n_batches
+    x0 = real_all[:BATCH, 0].contiguous()
+    fake6, real6 = fake_all[:BATCH].contiguous(), real_all[:BATCH].contiguous()
+    ff, rf = fake6.flatten(0, 1), real6.flatten(0, 1)
+    video = torch.stack([fake6[0]] * N_REALIZ) * 0.5 + 0.5
+    with torch.inference_mode():
+        fwd = {dt: cuda_ms(lambda m=m: m.forward(x0), iters=3, reps=3)
+               for dt, m in models.items()}
+        i3d_ms = {k: cuda_ms(lambda f=fvd.activation_fn(m[0]), k=k: f(
+            fake6 if k == "kinetics" else fvd.prep_dt_time(fake6, 16)), iters=2, reps=3) / BATCH
+            for k, m in i3d.items()}
+        inc_ms = cuda_ms(lambda: stream.inception(ff), iters=2, reps=3) / ff.shape[0]
+        lp_ms = cuda_ms(lambda: stream.lpips(ff, rf), iters=2, reps=3) / ff.shape[0]
+        vgg_ms = cuda_ms(lambda: dstream._vgg_pairs(video), iters=2, reps=3) / (N_REALIZ * EVAL_SEQ)
+    log(f"  [{card}] eval stages, each alone: loader + augment {load_ms:.3f} ms per batch of "
+        f"{BATCH} ({EVAL_SEQ + 1} frames, {loaders['synthesis'].framestore.backend} framestore); "
+        f"Model.forward bs={BATCH} T={EVAL_SEQ} fp32 {fwd['float32']:.3f} ms, bf16 "
+        f"{fwd['bfloat16']:.3f} ms; I3D kinetics {i3d_ms['kinetics']:.3f} ms per clip, DT-16 "
+        f"{i3d_ms['dt16']:.3f} ms per clip (16 frames at 224, batches of {BATCH}); Inception "
+        f"{inc_ms:.3f} ms per frame (299 px, batches of {ff.shape[0]}); LPIPS {lp_ms:.3f} ms per "
+        f"frame pair (64 px); VGG diversity {vgg_ms:.3f} ms per frame (224 px, with its pairs, "
+        f"{N_REALIZ * EVAL_SEQ} frames a video)")
+    for loader in loaders.values():
+        loader.framestore.close()
+    t0 = time.perf_counter()
+    stream.results()
+    s_res = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dstream.results()
+    log(f"  [{card}] results() on the host, each alone: synthesis (float64 Fréchet: FID 2048-d, "
+        f"DTFVD 1024-d, FVD 400-d) {s_res * 1e3:.1f} ms, diversity "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    stream.add_batch = add_batch
+
+    def synthesis_step():
+        """One batch of the synthesis body after loading: sample, the BAIR
+        frame protocol, all four backbones (its rows join the spent stream)."""
+        gen = model(x0)
+        stream.add_batch(torch.cat((real6[:, :1], gen[:, :-1]), dim=1), real6)
+
+    launches = {"flow_reverse_fused": s_launches["flow_reverse_fused"]
+                + d_launches["flow_reverse_fused"], "flow_forward_fused": 0}
+    device_launches = {"flow_reverse_fused": s_dev["flow_reverse_fused"]
+                       + d_dev["flow_reverse_fused"], "flow_forward_fused": 0}
+    return launches, device_launches, synthesis_step
 
 
 def _timeline_library(lib):
@@ -732,6 +1074,11 @@ def main() -> int:
     models, x0, residual, launches, device_launches = phase_main_path()
     log("== 4b. transfer path (landscape preset, random weights)")
     t_models, q, t_x0, t_launches, t_device_launches = phase_transfer()
+    log("== 4c. offline evaluation (BAIR preset, random weights and backbones)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        e_launches, e_device_launches, synthesis_step = phase_eval(card, models, Path(tmp))
+    log(f"  phase 4c took {time.perf_counter() - t0:.2f} s")
 
     log("== 5. timings")
     rows = phase_timings(card, models, x0, residual)
@@ -747,10 +1094,12 @@ def main() -> int:
     phase_trace(card, "Model.transfer landscape bs=6 T=16 bf16",
                 lambda: transfer.transfer(q, t_x0),
                 "trace_model_transfer_bf16.json", "encoder, query embedder, input")
+    phase_trace(card, "eval synthesis step bs=6 fp32", synthesis_step,
+                "trace_eval_synthesis_step.json", "embedder, input")
 
     # each kernel at the shape its path gives it, in that path's mode (bf16
     # weights): the reverse at the BAIR sampling path's B=6, E=64, the forward
-    # at the transfer's one query, B=1, E=128; launches over both windows
+    # at the transfer's one query, B=1, E=128; launches over all four windows
     kernels = []
     for name, line, r, shape, err_key in (
         ("flow_reverse_fused", 221, rows[("flow_reverse_fused", "bf16")], "B=6 C=64 E=64",
@@ -761,8 +1110,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": f"{PALLAS_KERNEL}:{line}",
-            "launches": launches[name] + t_launches[name],
-            "device_launches": device_launches[name] + t_device_launches[name],
+            "launches": launches[name] + t_launches[name] + e_launches[name],
+            "device_launches": (device_launches[name] + t_device_launches[name]
+                                + e_device_launches[name]),
             "shape": f"{shape} hidden 512 20 blocks, bf16 weights",
             "max_abs_err": errs[err_key],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

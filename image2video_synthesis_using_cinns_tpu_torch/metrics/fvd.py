@@ -1,0 +1,116 @@
+"""FVD / DTFVD activations (port of ``metrics/fvd.py``).
+
+* Kinetics FVD: frames bilinearly resized to 224 with align-corners
+  sampling, denormalised from the *declared* input range to [0, 1] (never
+  by the batch's content), I3D 400-d logits.
+* DTFVD: the DTDB-trained I3D's 1024-d representation; the 16-frame variant
+  tiles the clip 3x in time and keeps 16 frames (``prep_dt_time``), the
+  32-frame one needs 32 frames.
+
+Weights: ``<weights_root>/PI3D/model_rgb.msgpack`` and
+``<weights_root>/DTI3D/length{16,32}/I3D_{16,32}.msgpack``, variables trees
+of the JAX package's I3D (``utils/convert.py`` carries them over). A missing
+file raises ``FileNotFoundError``: there is no random fallback.
+
+Videos are the port's layout, (N, T, C, H, W); activations come back as
+float32 rows. The materialised scoring functions (``calculate_FVD``,
+``compute_fvd_official_protocol``) are not ported: the eval CLIs stream
+(``streaming_eval.py``).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from ..models.backbones.i3d import I3D
+from ..models.facade import resolve_device
+from ..ops.resize import resize_bilinear_align_corners
+from ..utils import checkpoint as ckpt_io
+from ..utils import convert
+
+
+class I3DModel(NamedTuple):
+    module: I3D  # weights loaded, on its device, in eval mode
+    kind: str  # 'kinetics' | 'dt16' | 'dt32'
+
+
+def build(kind: str) -> I3D:
+    """The I3D of ``kind`` with the module's own random initialisation."""
+    if kind == "kinetics":
+        return I3D(num_classes=400, head="logits")
+    if kind == "dt16":
+        return I3D(num_classes=18, head="representation", avg_pool_t=2, bn_eps=1e-5)
+    if kind == "dt32":
+        return I3D(num_classes=18, head="representation", avg_pool_t=4, bn_eps=1e-5)
+    raise ValueError(kind)
+
+
+WEIGHT_FILES = {
+    "kinetics": os.path.join("PI3D", "model_rgb.msgpack"),
+    "dt16": os.path.join("DTI3D", "length16", "I3D_16.msgpack"),
+    "dt32": os.path.join("DTI3D", "length32", "I3D_32.msgpack"),
+}
+
+
+def load_model(kind: str = "kinetics", weights_root: str = "models", device=None) -> I3DModel:
+    module = build(kind)
+    path = os.path.join(weights_root, WEIGHT_FILES[kind])
+    found = ckpt_io.find(os.path.splitext(path)[0])
+    if found is None:
+        raise FileNotFoundError(
+            f"I3D weights not found at {path}; convert the reference weights "
+            "with the JAX package's utils/convert.py (see README)"
+        )
+    convert.load_checkpoint(module, found)
+    return I3DModel(module.to(resolve_device(device)).eval(), kind)
+
+
+def _resize224(videos: torch.Tensor) -> torch.Tensor:
+    b, t = videos.shape[:2]
+    flat = resize_bilinear_align_corners(videos.reshape((-1,) + videos.shape[2:]), (224, 224))
+    return flat.reshape(b, t, videos.shape[2], 224, 224)
+
+
+def activation_fn(model: I3DModel, input_range: tuple[float, float] = (-1.0, 1.0)
+                  ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The per-batch activation program: videos (B, T, C, H, W) with values in
+    ``input_range`` -> (B, D) on the model's device."""
+    lo, hi = float(input_range[0]), float(input_range[1])
+    device = next(model.module.parameters()).device
+
+    @torch.inference_mode()
+    def run(videos: torch.Tensor) -> torch.Tensor:
+        x = _resize224(torch.as_tensor(videos).to(device, torch.float32))
+        x = (x - lo) / (hi - lo)  # by the declared range, never the batch's content
+        out = model.module(x.permute(0, 2, 1, 3, 4))
+        return out[1] if model.kind == "kinetics" else out
+
+    return run
+
+
+def prep_dt_time(videos: torch.Tensor, length: int) -> torch.Tensor:
+    """(B, T, ...) -> the DT net's clip: tiled 3x in time and cut to 16 frames
+    for DT-16; DT-32 takes 32 frames as they are."""
+    if length == 16:
+        return torch.cat([videos] * 3, dim=1)[:, :16]
+    if videos.shape[1] != 32:
+        raise ValueError("DTFVD-32 requires 32-frame videos")
+    return videos
+
+
+def get_activations(model: I3DModel, videos, batch_size: int,
+                    input_range: tuple[float, float] = (-1.0, 1.0)) -> np.ndarray:
+    """videos: (N, T, C, H, W), a tensor on any device or a numpy array.
+
+    The ``N % batch_size`` trailing clips are dropped on purpose, as the
+    reference's FID-style batching does; pass a divisor to score every clip."""
+    run = activation_fn(model, input_range)
+    n = videos.shape[0]
+    bs = min(batch_size, n)
+    outs = [run(torch.as_tensor(videos[i * bs : (i + 1) * bs])).cpu().numpy()
+            for i in range(n // bs)]
+    return np.concatenate(outs, axis=0)

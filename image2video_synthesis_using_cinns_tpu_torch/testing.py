@@ -41,7 +41,9 @@ PRESETS = {
 
 def configs(preset: str, control: bool = False) -> tuple[Config, Config, Config]:
     """(stage-2 config, stage-1 config, AE section) with the keys of the
-    sampling and transfer paths."""
+    sampling, transfer and evaluation paths; the stage-2 ``Data`` section is
+    the JAX fixture's (``testing.stage2_config``), which the eval CLIs read
+    from ``Model.config``."""
     p = PRESETS[preset]
     stage1 = Config({
         "Decoder": {
@@ -62,6 +64,14 @@ def configs(preset: str, control: bool = False) -> tuple[Config, Config, Config]
                  "flow_mid_channels_factor": p["flow_factor"]},
         "Conditioning_Model": {"z_dim": p["cond_z"]},
         "Training": {"control": control},
+        "Data": {
+            "sequence_length": p["seq_length"], "img_size": p["img_size"],
+            "dataset": "BAIR", "aug": True, "data_path": "",
+            "Augmentation": {
+                "brightness": 0.1, "contrast": 0.1, "saturation": 0.1,
+                "hue": 0, "prob_hflip": 0.5,
+            },
+        },
     })
     return stage2, stage1, ae
 

@@ -1,14 +1,19 @@
-"""Checkpoint lookup and a reader for the flax msgpack checkpoint format.
+"""Checkpoint lookup, reader and writer for the flax msgpack checkpoint format.
 
-Port of ``utils/checkpoint.py`` (``load``/``find``) for ``.msgpack`` files,
-without ``msgpack`` or ``flax``: a small pure-Python decoder for the subset
-of MessagePack that ``flax.serialization.msgpack_serialize`` writes for a
-checkpoint -- maps, arrays, str, bin, ints, floats, nil and bools, plus the
+Port of ``utils/checkpoint.py`` (``load``/``find``/``save``) for ``.msgpack``
+files, without ``msgpack`` or ``flax``: a small pure-Python codec for the
+subset of MessagePack that ``flax.serialization.msgpack_serialize`` writes for
+a checkpoint -- maps, arrays, str, bin, ints, floats, nil and bools, plus the
 ndarray extension (ext code 1), whose payload is itself a msgpack array
 ``(shape, dtype name, raw C-order bytes)``. Arrays that flax
-split into chunks (``__msgpack_chunked_array__``) are joined again.
+split into chunks (``__msgpack_chunked_array__``) are joined again on read and
+split the same way on write.
 
-Reading a torch ``.pth`` checkpoint is not ported yet.
+``save`` writes the bytes the JAX package's ``save`` writes for the same tree
+(``flax.serialization.to_state_dict`` turns lists and tuples into maps keyed
+``"0"``, ``"1"``, ...; every leaf with a shape, torch tensors included, is an
+ndarray; bf16 tensors keep the ``bfloat16`` dtype name). Reading a torch
+``.pth`` checkpoint, and ``save_async``/``wait``, are not ported yet.
 """
 
 from __future__ import annotations
@@ -132,6 +137,138 @@ def unpackb(data: bytes) -> Any:
     if r.pos != len(r.buf):
         raise ValueError("trailing bytes after msgpack object")
     return out
+
+
+_MAX_CHUNK_BYTES = 2**30  # flax.serialization.MAX_CHUNK_SIZE
+
+
+def _pack_len(out: bytearray, n: int, fix: int | None, fix_max: int, codes: tuple) -> None:
+    """A length header: ``fix | n`` up to ``fix_max``, then 8-, 16-, 32-bit forms."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+    elif codes[0] is not None and n < 1 << 8:
+        out += struct.pack(">BB", codes[0], n)
+    elif n < 1 << 16:
+        out += struct.pack(">BH", codes[1], n)
+    else:
+        out += struct.pack(">BI", codes[2], n)
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v < 0x80 or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+    elif v >= 0:
+        for code, fmt, top in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+                               (0xCE, ">I", 1 << 32), (0xCF, ">Q", 1 << 64)):
+            if v < top:
+                out += struct.pack(">B", code) + struct.pack(fmt, v)
+                return
+        raise OverflowError(v)
+    else:
+        for code, fmt, low in ((0xD0, ">b", -(1 << 7)), (0xD1, ">h", -(1 << 15)),
+                               (0xD2, ">i", -(1 << 31)), (0xD3, ">q", -(1 << 63))):
+            if v >= low:
+                out += struct.pack(">B", code) + struct.pack(fmt, v)
+                return
+        raise OverflowError(v)
+
+
+def _pack(out: bytearray, v: Any) -> None:
+    if v is None:
+        out.append(0xC0)
+    elif v is True or v is False:
+        out.append(0xC3 if v else 0xC2)
+    elif isinstance(v, int):
+        _pack_int(out, v)
+    elif isinstance(v, float):
+        out += struct.pack(">Bd", 0xCB, v)
+    elif isinstance(v, str):
+        b = v.encode("utf-8")
+        _pack_len(out, len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += b
+    elif isinstance(v, (bytes, bytearray)):
+        _pack_len(out, len(v), None, 0, (0xC4, 0xC5, 0xC6))
+        out += v
+    elif isinstance(v, (list, tuple)):
+        _pack_len(out, len(v), 0x90, 15, (None, 0xDC, 0xDD))
+        for x in v:
+            _pack(out, x)
+    elif isinstance(v, dict):
+        _pack_len(out, len(v), 0x80, 15, (None, 0xDE, 0xDF))
+        for k, x in v.items():
+            _pack(out, k)
+            _pack(out, x)
+    elif isinstance(v, _Leaf):
+        payload = bytearray()
+        _pack(payload, [list(v.array.shape), v.name, v.array.tobytes("C")])
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            out.append(fixext[n])
+        else:
+            _pack_len(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", _EXT_NDARRAY) + payload
+    else:
+        raise TypeError(f"cannot serialise {type(v).__name__}")
+
+
+class _Leaf:
+    """An array leaf: its data and the dtype name written beside it (numpy has
+    no bfloat16, so a bf16 tensor travels as its raw 16-bit words)."""
+
+    def __init__(self, array: np.ndarray, name: str):
+        self.array, self.name = array, name
+
+
+def _leaf(v: Any) -> _Leaf:
+    if type(v).__module__ == "torch":  # a torch.Tensor
+        import torch
+
+        t = v.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return _Leaf(t.view(torch.int16).numpy().view(np.uint16), "bfloat16")
+        v = t.numpy()
+    a = np.asarray(v)
+    return _Leaf(a, a.dtype.name)
+
+
+def _to_state(v: Any) -> Any:
+    """The tree the JAX ``save`` serialises: maps keyed by str in sorted order
+    (its ``jax.tree.map`` sorts dict keys), lists and tuples as maps in index
+    order (``flax.serialization.to_state_dict``), shaped leaves as arrays
+    (those above 1 GiB chunked)."""
+    if isinstance(v, dict):
+        return {str(k): _to_state(v[k]) for k in sorted(v)}
+    if isinstance(v, (list, tuple)):
+        return {str(i): _to_state(x) for i, x in enumerate(v)}
+    if not hasattr(v, "shape"):
+        return v
+    leaf = _leaf(v)
+    if leaf.array.nbytes <= _MAX_CHUNK_BYTES:
+        return leaf
+    flat = leaf.array.reshape(-1)
+    size = max(1, _MAX_CHUNK_BYTES // flat.dtype.itemsize)
+    chunks = [_Leaf(flat[i : i + size], leaf.name) for i in range(0, flat.size, size)]
+    return {"__msgpack_chunked_array__": True,
+            "shape": {str(i): n for i, n in enumerate(leaf.array.shape)},
+            "chunks": {str(i): c for i, c in enumerate(chunks)}}
+
+
+def packb(tree: Any) -> bytes:
+    """Encode one tree of dicts, lists, scalars and arrays as msgpack bytes."""
+    out = bytearray()
+    _pack(out, tree)
+    return bytes(out)
+
+
+def save(path: str, payload: dict) -> None:
+    """Write ``payload`` atomically (a temporary file, then a rename) in the
+    format of the JAX package's ``save``."""
+    data = packb(_to_state(dict(payload)))
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
 
 
 def load(path: str) -> dict:

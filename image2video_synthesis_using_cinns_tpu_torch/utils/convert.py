@@ -14,7 +14,10 @@ Leaves are recognised by the set of names in their dict:
 * ``{scale, bias}``: an affine GroupNorm -> ``weight``/``bias``;
 * ``{w, b}``: the flow's stacked coupling layer (n, in, out) -> ``weight``
   (n, out, in) and ``bias``;
-* ``{loc, scale}``: the flow's stacked ActNorm, kept as it is.
+* ``{loc, scale}``: the flow's stacked ActNorm, kept as it is;
+* ``bn_mean``/``bn_var``/``bn_scale``/``bn_bias`` beside a ``conv``/``conv3d``
+  leaf: the frozen BatchNorm of the metric backbones (I3D's ``Unit3D``,
+  Inception's ``BasicConv2d``), kept as they are.
 
 ``buffers`` leaves (the flow's shuffle permutations) are copied as int64:
 they are always taken from the tree, never drawn again. ``batch_stats``
@@ -33,8 +36,10 @@ import numpy as np
 import torch
 
 from ..ops import spectral
+from . import checkpoint
 
 _COLLECTIONS = {"params", "spectral", "buffers", "batch_stats", "actnorm_stats"}
+_FROZEN_BN = ("bn_mean", "bn_var", "bn_scale", "bn_bias")
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -78,6 +83,9 @@ def _walk(tree: dict, spectral_tree: dict, path: tuple, out: dict) -> None:
         out[_key(path, "scale")] = _tensor(tree["scale"])
         return
     for name, sub in tree.items():
+        if name in _FROZEN_BN:
+            out[_key(path, name)] = _tensor(sub)
+            continue
         if not isinstance(sub, dict):
             raise ValueError(f"{'/'.join(path + (name,))}: unexpected leaf")
         _walk(sub, (spectral_tree or {}).get(name, {}), path + (name,), out)
@@ -105,6 +113,36 @@ def to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     _walk_leaves(variables.get("buffers", {}), (), out, _int64)
     _walk_leaves(variables.get("batch_stats", {}), (), out, _tensor)
     return out
+
+
+def to_variables(state_dict: dict[str, torch.Tensor]) -> dict:
+    """state_dict of a metric backbone (convolutions without spectral norm and
+    frozen-BN leaves) -> the JAX variables tree ``{"params": ...}`` that
+    ``to_state_dict`` maps back onto it: the inverse of the bridge for those
+    modules, so the port can write backbone weights in the JAX package's
+    format."""
+    params: dict = {}
+    for key, t in state_dict.items():
+        *path, name = key.split(".")
+        node = params
+        for p in path:
+            node = node.setdefault(p, {})
+        a = t.detach().cpu().float().numpy()
+        if name == "weight" and a.ndim >= 3:  # (out, in, *k) -> (*k, in, out)
+            node["kernel"] = np.ascontiguousarray(np.transpose(a, tuple(range(2, a.ndim)) + (1, 0)))
+        elif name in ("bias",) + _FROZEN_BN:
+            node[name] = a
+        else:
+            raise ValueError(f"{key}: not a leaf of a metric backbone")
+    return {"params": params}
+
+
+def load_checkpoint(module: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load the variables tree of a ``.msgpack`` checkpoint (``{"state_dict":
+    variables}`` or the bare tree) strictly into ``module``."""
+    payload = checkpoint.load(path)
+    module.load_state_dict(to_state_dict(payload.get("state_dict", payload)))
+    return module
 
 
 def splice(variables: dict, key: str, sub_vars: dict) -> dict:

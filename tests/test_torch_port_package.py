@@ -106,6 +106,78 @@ def test_msgpack_reader_joins_chunked_arrays(tmp_path, monkeypatch):
     np.testing.assert_array_equal(tckpt.load(path)["state_dict"]["params"]["w"], arr)
 
 
+def test_save_writes_the_jax_packages_bytes(tmp_path):
+    """The port's save and the JAX save write the same bytes for the same
+    tree, and each package reads the other's file back."""
+    payload = _payload(np.random.default_rng(2))
+    ours, theirs = str(tmp_path / "port.msgpack"), str(tmp_path / "jax.msgpack")
+    tckpt.save(ours, payload)
+    jax_ckpt.save(theirs, payload)
+    assert open(ours, "rb").read() == open(theirs, "rb").read()
+    _assert_tree_equal(jax_ckpt.load(ours), jax_ckpt.load(theirs))
+    _assert_tree_equal(tckpt.load(theirs), jax_ckpt.load(ours))
+
+
+def test_save_round_trips_torch_tensors(tmp_path):
+    """Torch leaves (fp32, int64, bf16 as its raw words named 'bfloat16')
+    round-trip through the JAX load and the port's load."""
+    import jax.numpy as jnp
+    import torch
+
+    g = torch.Generator().manual_seed(3)
+    tree = {"state_dict": {"params": {"w": torch.randn(4, 3, generator=g),
+                                      "h": torch.randn(5, generator=g).to(torch.bfloat16)},
+                           "buffers": {"perm": torch.randperm(7, generator=g)}},
+            "epoch": 3, "sizes": (1, [2, 3])}
+    path = str(tmp_path / "t.msgpack")
+    tckpt.save(path, tree)
+    ref = jax_ckpt.load(path)
+    assert ref["state_dict"]["params"]["h"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(ref["state_dict"]["params"]["h"], np.float32),
+                                  tree["state_dict"]["params"]["h"].float().numpy())
+    np.testing.assert_array_equal(ref["state_dict"]["params"]["w"],
+                                  tree["state_dict"]["params"]["w"].numpy())
+    back = tckpt.load(path)
+    np.testing.assert_array_equal(back["state_dict"]["buffers"]["perm"],
+                                  tree["state_dict"]["buffers"]["perm"].numpy())
+    np.testing.assert_array_equal(back["state_dict"]["params"]["h"],
+                                  tree["state_dict"]["params"]["h"].float().numpy())
+    assert back["sizes"] == ref["sizes"] == {"0": 1, "1": {"0": 2, "1": 3}}
+    jax_ckpt.save(str(tmp_path / "j.msgpack"), {
+        "state_dict": {"params": {"w": tree["state_dict"]["params"]["w"].numpy(),
+                                  "h": jnp.asarray(ref["state_dict"]["params"]["h"])},
+                       "buffers": {"perm": tree["state_dict"]["buffers"]["perm"].numpy()}},
+        "epoch": 3, "sizes": (1, [2, 3])})
+    assert open(path, "rb").read() == open(str(tmp_path / "j.msgpack"), "rb").read()
+
+
+def test_save_chunks_like_flax(tmp_path, monkeypatch):
+    """Arrays above the chunk size are split as flax splits them."""
+    monkeypatch.setattr(flax.serialization, "MAX_CHUNK_SIZE", 256)
+    monkeypatch.setattr(tckpt, "_MAX_CHUNK_BYTES", 256)
+    tree = {"state_dict": {"params": {"w": np.arange(300, dtype=np.float32).reshape(10, 30),
+                                      "small": np.ones(3, np.float32)}}}
+    ours, theirs = str(tmp_path / "p.msgpack"), str(tmp_path / "j.msgpack")
+    tckpt.save(ours, tree)
+    jax_ckpt.save(theirs, tree)
+    assert open(ours, "rb").read() == open(theirs, "rb").read()
+    assert "__msgpack_chunked_array__" in tckpt.unpackb(open(ours, "rb").read())[
+        "state_dict"]["params"]["w"]
+    np.testing.assert_array_equal(tckpt.load(ours)["state_dict"]["params"]["w"],
+                                  tree["state_dict"]["params"]["w"])
+
+
+@pytest.mark.parametrize("preset", ["tiny", "bair", "landscape"])
+def test_stage2_config_has_the_jax_data_section(preset):
+    """build_model(...).config carries the stage-2 ``Data`` section of the JAX
+    fixture, which the eval CLIs read (img_size, framestore)."""
+    from image2video_synthesis_using_cinns_tpu import testing as jtesting
+    from image2video_synthesis_using_cinns_tpu_torch import testing as ttesting
+
+    want = jtesting.stage2_config(jtesting.PRESETS[preset], "s1/", "ae/").Data
+    assert ttesting.configs(preset)[0].Data.to_dict() == want.to_dict()
+
+
 def test_find_msgpack_only(tmp_path):
     stem = str(tmp_path / "model")
     assert tckpt.find(stem) is None
