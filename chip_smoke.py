@@ -43,6 +43,23 @@ Phases (any failure raises and the script exits non-zero):
    (``BACKBONE_TOL``); the stream's Fréchet values against activations taken
    at another batch size (``BATCHING_TOL``). Then the eval's wall time and
    clips/s for each body and its stages, each timed alone.
+   4d. Stage-2 training at the full BAIR preset: the trainer's ``train``
+   (``configs/stage2/bair_config.yaml``'s Training and Data: bs 50, amsgrad,
+   the train augment) over synthetic train and eval splits of 100 and 40
+   clips packed into FrameStores, random full-size models, the I3D of 4c for
+   the prior FVD, 2 epochs of 2 steps with the ActNorm init, validation,
+   prior FVD and checkpoints, in its own counted window: one forward chain
+   per validation batch and one reverse chain per prior-FVD batch, fp32
+   weights, each one device kernel. Checks: losses and the FVD finite; one
+   step on the card against the CPU at bs 4: in fp32 the posterior, the
+   embedding and the loss, each no further from the CPU's fp64 step than
+   the CPU's fp32 (``FP32_RATIO``), in fp64 the loss and the flow's
+   gradients (``F64_LOSS_TOL``, ``F64_GRAD_TOL``); the validation NLL through the
+   forward kernel against the plain flow's (``KERNEL_NLL_TOL``); the reverse
+   chain back to the posterior (``INVERSE_TOL``); both checkpoints reload
+   into a fresh cINN; 10 steps on one batch lower its NLL. Then the step's
+   time at bs 50 (fp32 and bf16 encoder), its stages each alone, the
+   validation pass and the prior FVD, and both chains in fp32 at B=10.
 5. Timings: each kernel's median ms beside its plain version and its bound;
    the reverse chain at B = 1, 6 and 16; where a chain's time goes, from the
    timeline build (per layer and pass, and the kernel's own span), and a
@@ -54,13 +71,14 @@ Phases (any failure raises and the script exits non-zero):
    their plain versions and bounds. Each line carries the card's name and
    power limit.
 6. ``torch.profiler`` traces of two bf16 ``Model.forward`` calls, of two
-   bf16 landscape ``Model.transfer`` calls and of two synthesis-eval steps
-   (sample a batch, all four backbones): the top device kernels, the flow
+   bf16 landscape ``Model.transfer`` calls, of two synthesis-eval steps
+   (sample a batch, all four backbones) and of two training steps (device
+   time by stage span): the top device kernels, the flow
    chain's share, the device's idle share, and the host and device time
    before the first flow chain (the embedder; in transfer, the encoder and
    the query's embedding). The traces are written to ``smoke_out/`` (listed
    in ``.gitignore``).
-7. A ``{"kernels": [...]}`` line (launches summed over the four counted
+7. A ``{"kernels": [...]}`` line (launches summed over the five counted
    windows), then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is visible, and when the
@@ -112,6 +130,37 @@ BAIR_FRAMES, BAIR_PX = 30, 64
 BACKBONE_TOL = 1e-4
 # the stream's Fréchet values against activations taken at another batch size
 BATCHING_TOL = 1e-6
+# phase 4d, stage-2 training at the BAIR preset: the Training and Data
+# sections of configs/stage2/bair_config.yaml (copied here: the card's machine
+# may have no YAML reader), its 30 loader workers cut to the machine's 8
+# cores, 2 epochs; synthetic train and eval splits of 100 and 40 clips of 30
+# 64x64 frames (2 steps of 50 clips an epoch, 4 eval batches of 10)
+TRAIN_CLIPS, TRAIN_EVAL_CLIPS, TRAIN_EPOCHS, TRAIN_WORKERS = 100, 40, 2, 8
+TRAIN_CONFIG = dict(n_epochs=TRAIN_EPOCHS, lr=1.0e-05, workers=TRAIN_WORKERS, bs=50, bs_eval=10,
+                    control=False, verbose_idx=30, weight_decay=0, gamma=0.5, step_size=7,
+                    beta1=0.9, beta2=0.99, amsgrad=True, steps_per_dispatch=8,
+                    savename="chip_smoke")
+TRAIN_DATA = dict(sequence_length=17, dataset="BAIR", img_size=64, reverse=False, aug=True,
+                  framestore="off", Augmentation=dict(brightness=0.1, contrast=0.1,
+                                                      saturation=0.1, hue=0, prob_hflip=0.5))
+GRAD_CHECK_BATCH = 4  # clips of the card-against-CPU step
+# card against CPU, one step on the same batch and eps, TF32 off. In fp32
+# the posterior and the embedding (over their largest magnitude) and the loss
+# (over the scale of its two terms) are held against the CPU's fp64 step: the
+# card's error may be at most FP32_RATIO times the CPU's own fp32 error (or
+# FP32_FLOOR): random weights make the InstanceNorm embedder amplify rounding
+# (2.7e-4 card vs CPU on an H100), and TF32 rounds about 1e4 times
+# coarser than fp32. The fp32 gradients are reported, not bounded: a rounding difference
+# that moves a pre-activation across a LeakyReLU kink changes a whole row of
+# a gradient (the card's and the CPU's fp32 both 2.8e-2 of the largest from
+# fp64 on an H100). The same step in fp64 holds the loss and the
+# gradients, where rounding cannot reach a kink.
+FP32_RATIO, FP32_FLOOR = 10.0, 1e-6
+F64_LOSS_TOL, F64_GRAD_TOL = 1e-10, 1e-8
+# the validation NLL through the forward kernel against the plain flow's,
+# relative to the loss; and the reverse chain back to the posterior (allclose)
+KERNEL_NLL_TOL, INVERSE_TOL = 1e-5, 1e-4
+TRAIN_SPANS = ("stage2/posterior", "stage2/embedder", "stage2/flow", "stage2/optimizer")
 
 
 def log(*a):
@@ -441,11 +490,13 @@ def seeded_imread(path: str):
     return frame
 
 
-def bair_split(root: Path, n_clips: int) -> str:
-    """``<root>/test/traj_<k>/<n>/``: the clip directories of a BAIR test split
-    (the frames come from ``seeded_imread``, packed into a FrameStore)."""
+def bair_split(root: Path, n_clips: int, mode: str = "test", first_traj: int = 0) -> str:
+    """``<root>/<mode>/traj_<k>/<n>/``: the clip directories of a BAIR split,
+    ten to a trajectory from ``traj_<first_traj>`` (the frames come from
+    ``seeded_imread``, packed into a FrameStore; splits that must differ
+    start at different trajectories)."""
     for i in range(n_clips):
-        (root / "test" / f"traj_{i // 10}" / str(i % 10)).mkdir(parents=True)
+        (root / mode / f"traj_{first_traj + i // 10}" / str(i % 10)).mkdir(parents=True)
     return str(root) + "/"
 
 
@@ -734,6 +785,293 @@ def phase_eval(card: str, models, tmp: Path):
     return launches, device_launches, synthesis_step
 
 
+def first_batch(loader, epoch: int = 0) -> dict:
+    it = loader.epoch_iter(epoch)
+    try:
+        return next(it)
+    finally:
+        it.close()
+
+
+def phase_train(card: str, tmp: Path, weights_root: str):
+    """Stage-2 training at the full BAIR preset: the trainer's ``train`` over
+    synthetic splits packed into FrameStores, random full-size models, the
+    prior FVD with the I3D under ``weights_root``, checkpoints in ``tmp``, in
+    its own counted window (one forward chain per validation batch and one
+    reverse chain per prior-FVD batch, each one device kernel); then its
+    checks, its timings, and the step it traces."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.config import Config
+    from image2video_synthesis_using_cinns_tpu_torch.data import get_loader
+    from image2video_synthesis_using_cinns_tpu_torch.data.augment import build_augment
+    from image2video_synthesis_using_cinns_tpu_torch.data.framestore import FrameStore
+    from image2video_synthesis_using_cinns_tpu_torch.data.loader import Loader
+    from image2video_synthesis_using_cinns_tpu_torch.data.registry import augment_params
+    from image2video_synthesis_using_cinns_tpu_torch.losses.flow_loss import flow_loss
+    from image2video_synthesis_using_cinns_tpu_torch.models.stage2.inn import SupervisedTransformer
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
+    from image2video_synthesis_using_cinns_tpu_torch.testing import configs
+    from image2video_synthesis_using_cinns_tpu_torch.train import optim, stage2
+    from image2video_synthesis_using_cinns_tpu_torch.train.fvd_eval import evaluate_FVD_prior
+    from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint, convert
+
+    t0 = time.perf_counter()
+    opt, config1, ae = configs(PRESET)
+    root = tmp / "bair_train"
+    bair_split(root, TRAIN_CLIPS, "train")
+    bair_split(root, TRAIN_EVAL_CLIPS, "eval", first_traj=20)
+    opt.Training = Config(dict(TRAIN_CONFIG, save_path=str(tmp / "runs")))
+    opt.Data = Config(dict(TRAIN_DATA, data_path=str(root) + "/"))
+    opt.Logging = Config({"mode": "disabled"})
+    tr = opt.Training
+    loaders = {}
+    for mode, bs, seed in (("train", tr["bs"], 42), ("eval", tr["bs_eval"], 43)):
+        ds = get_loader("BAIR")(opt, mode)
+        store = FrameStore.build(ds, str(tmp / f"train_{mode}.fst"), imread=seeded_imread)
+        loaders[mode] = Loader(ds, bs, workers=TRAIN_WORKERS, drop_last=False, seed=seed,
+                               framestore=store)
+    models = stage2.build_models_from_configs(opt, config1, ae, seed=0)
+    n_eval = len(loaders["eval"])
+    log(f"  set-up {time.perf_counter() - t0:.2f} s: BAIR train and eval splits of {TRAIN_CLIPS} "
+        f"and {TRAIN_EVAL_CLIPS} clips packed, full-size random models built")
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = stage2.train(opt, models, loaders["train"], loaders["eval"], device=DEVICE,
+                       weights_root=weights_root)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, device_launches = dict(fk.launches), dict(fk.device_launches)
+    log(f"  training chain launches: {launches}; device kernels they launched: {device_launches}")
+    want = {"flow_reverse_fused": TRAIN_EPOCHS * n_eval, "flow_forward_fused": TRAIN_EPOCHS * n_eval}
+    if launches != want:
+        raise AssertionError(f"training: chain launches {launches}, expected {want}")
+    if device_launches != launches:
+        raise AssertionError("training: a chain launched other than one device kernel")
+    log(f"  [{card}] stage2.train bair bs={tr['bs']} bs_eval={tr['bs_eval']}, {TRAIN_EPOCHS} "
+        f"epochs of {len(loaders['train'])} steps with the ActNorm init, validation, prior FVD "
+        f"and checkpoints: {wall:.3f} s; {out['global_step']} steps; train {out['train_loss']}, "
+        f"eval {out['eval_loss']}, PFVD {out['PFVD']}")
+    values = [*out["train_loss"], *out["eval_loss"], out["PFVD"]]
+    if not all(np.isfinite(v) for v in values):
+        raise AssertionError(f"training: a loss or the prior FVD is not finite: {values}")
+    log("  every loss and the prior FVD finite")
+
+    # -- checks on the trained flow ----------------------------------------------
+    network, encoder, decoder = models.network, models.encoder, models.decoder
+    img, z = opt.Data["img_size"], config1.Decoder["z_dim"]
+    params_aug, random_crop, _ = augment_params(opt, "train")
+    aug = build_augment(img, params_aug, random_crop, True)
+    aug_eval = build_augment(img, params_aug, random_crop, False)
+    draws = stage2.Draws(7)
+    raw = torch.from_numpy(first_batch(loaders["train"])["seq_raw"]).to(DEVICE)
+    n = raw.shape[0]
+    aug_draws = draws.augment(0, 0, 0, n, params_aug, random_crop)
+    seq = aug(raw, draws=aug_draws)
+    cond = stage2.conditioning(seq, None)
+    eps = draws.normal("posterior", 0, 0, 0, (n, z))
+    ref = draws.normal("reference", 0, 0, 0, (n, z))
+
+    def step_terms(net, enc, s, e, r, dt):
+        """The step's posterior, embedding, loss terms and flow gradients in
+        ``dt`` (host copies)."""
+        net, enc = copy.deepcopy(net).to(s.device, dt), copy.deepcopy(enc).to(s.device, dt)
+        s = s.to(dt)
+        with torch.no_grad():
+            post = enc(s[:, 1:].permute(0, 4, 1, 2, 3), noise=e.to(s.device, dt))[0]
+            emb = net.embed(stage2.conditioning(s, None))
+        gauss, logdet = net.flow.plain(post.reshape(s.shape[0], -1), emb)
+        loss, aux = flow_loss(gauss, logdet, noise=r)
+        grads = torch.autograd.grad(loss, list(net.flow.parameters()))
+        return {"posterior": post.cpu(), "embedding": emb.cpu(),
+                "terms": {k: float(v) for k, v in aux.items()}, "grads": [g.cpu() for g in grads]}
+
+    def versus(a, b) -> dict:
+        """Card against CPU: the posterior and the embedding over their largest
+        magnitude, the loss over the scale of its two terms (it is their
+        difference), the flow's gradients over their largest magnitude."""
+        def over_largest(x, y):
+            return float((x.double() - y.double()).abs().max() / y.double().abs().max())
+        t = b["terms"]
+        scale = max(float(g.abs().max()) for g in b["grads"])
+        return {"posterior": over_largest(a["posterior"], b["posterior"]),
+                "embedding": over_largest(a["embedding"], b["embedding"]),
+                "loss": abs(a["terms"]["Loss"] - t["Loss"])
+                / (abs(t["nll_loss"]) + abs(t["nlogdet_loss"])),
+                "grads": max(float((x.double() - y.double()).abs().max())
+                             for x, y in zip(a["grads"], b["grads"])) / scale}
+
+    b = GRAD_CHECK_BATCH
+    s_card, s_cpu = seq[:b], seq[:b].cpu()
+    runs = {(dev, dt): step_terms(network, encoder, s, eps[:b], ref[:b], dt)
+            for dev, s in (("card", s_card), ("cpu", s_cpu))
+            for dt in (torch.float32, torch.float64)}
+    reference = runs["cpu", torch.float64]
+    f32 = versus(runs["card", torch.float32], runs["cpu", torch.float32])
+    f64 = versus(runs["card", torch.float64], reference)
+    card_err = versus(runs["card", torch.float32], reference)
+    cpu_err = versus(runs["cpu", torch.float32], reference)
+    del runs
+    for key in ("posterior", "embedding", "loss"):
+        ok = card_err[key] <= FP32_RATIO * max(cpu_err[key], FP32_FLOOR)
+        log(f"  card vs CPU, one step at bs={b} (the same batch and eps; TF32 off), fp32 {key}: "
+            f"{f32[key]:.3e}; against the CPU's fp64 step the card's {card_err[key]:.3e}, the "
+            f"CPU's {cpu_err[key]:.3e} (bound {FP32_RATIO:g} x max(CPU's, {FP32_FLOOR:g})) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"training: the card's fp32 {key} is further from fp64 than "
+                                 "the CPU's")
+    ok64 = f64["loss"] <= F64_LOSS_TOL and f64["grads"] <= F64_GRAD_TOL
+    log(f"  card vs CPU, the same step in fp64: loss {f64['loss']:.3e} (bound {F64_LOSS_TOL:g}), "
+        f"the flow's {len(reference['grads'])} gradients {f64['grads']:.3e} (bound "
+        f"{F64_GRAD_TOL:g}) {'ok' if ok64 else 'FAIL'}")
+    log(f"  fp32 gradients, over their largest (not bounded: LeakyReLU kinks): card vs CPU "
+        f"{f32['grads']:.3e}; against the CPU's fp64 step the card's {card_err['grads']:.3e}, "
+        f"the CPU's {cpu_err['grads']:.3e}")
+    if not ok64:
+        raise AssertionError("training: the card's fp64 step disagrees with the CPU's")
+
+    eb = first_batch(loaders["eval"])
+    eseq = aug_eval(torch.from_numpy(eb["seq_raw"]).to(DEVICE))
+    econd = stage2.conditioning(eseq, None)
+    ne = eseq.shape[0]
+    e_eps = draws.normal("eval_posterior", 0, 0, 0, (ne, z))
+    e_ref = draws.normal("eval_reference", 0, 0, 0, (ne, z))
+    with torch.no_grad():
+        kern = stage2.eval_step(network, encoder, eseq, econd, e_eps, e_ref)
+        post = stage2.posterior(encoder, eseq, e_eps)
+        emb = network.embed(econd)
+        nu, logdet = network.flow.plain(post, emb)
+        plain = flow_loss(nu, logdet, noise=e_ref)[1]
+        back = network.flow.fused(nu, emb, reverse=True)
+    term_scale = abs(float(plain["nll_loss"])) + abs(float(plain["nlogdet_loss"]))
+    worst = max(abs(float(kern[k]) - float(plain[k])) / term_scale
+                for k in ("Loss", "nll_loss", "nlogdet_loss"))
+    log(f"  validation NLL of {ne} clips through flow_forward_fused (fp32 pack) "
+        f"{float(kern['Loss']):.6g} against the plain flow's {float(plain['Loss']):.6g}: worst "
+        f"term over the scale of the two terms {worst:.3e} (bound {KERNEL_NLL_TOL:g}) "
+        f"{'ok' if worst <= KERNEL_NLL_TOL else 'FAIL'}")
+    if worst > KERNEL_NLL_TOL:
+        raise AssertionError("training: the forward kernel's NLL disagrees with the plain flow's")
+    check("train: flow_reverse_fused maps the trained flow's nu back to the posterior", back, post,
+          INVERSE_TOL)
+
+    run = Path(out["save_path"])
+    ckpts = {name: checkpoint.load(str(run / f"{name}.msgpack")) for name in ("cINN_latest", "cINN")}
+    for name, payload in ckpts.items():
+        fresh = SupervisedTransformer.from_configs(opt, config1.Decoder, ae)
+        fresh.load_state_dict(convert.to_state_dict(payload["state_dict"]))
+        with torch.no_grad():
+            nu_fresh = fresh.to(DEVICE).flow.plain(post, emb)[0]
+        if name == "cINN_latest" or payload["epoch"] == ckpts["cINN_latest"]["epoch"]:
+            check(f"train: {name}.msgpack (epoch {payload['epoch']}) reloaded gives the same nu",
+                  nu_fresh, nu, 0.0)
+        elif not bool(torch.isfinite(nu_fresh).all()):
+            raise AssertionError(f"training: {name}.msgpack gives a non-finite nu")
+        else:
+            log(f"  {name}.msgpack (epoch {payload['epoch']}, the best) reloads, nu finite")
+    del ckpts
+
+    net10 = copy.deepcopy(network)
+    opt10 = optim.adam_torch(list(net10.flow.parameters()), tr["lr"],
+                             betas=(tr["beta1"], tr["beta2"]), weight_decay=tr["weight_decay"],
+                             amsgrad=bool(tr["amsgrad"]))
+
+    def batch_nll() -> float:
+        with torch.no_grad():
+            p = stage2.posterior(encoder, seq, eps)
+            return float(flow_loss(*net10.flow.plain(p, net10.embed(cond)), noise=ref)[0])
+
+    before = batch_nll()
+    for _ in range(10):
+        stage2.train_step(net10, opt10, encoder, seq, cond, eps, ref)
+    after = batch_nll()
+    log(f"  10 steps on one batch of {n}: its NLL {before:.6g} -> {after:.6g} "
+        f"{'ok' if after < before else 'FAIL'}")
+    if not after < before:
+        raise AssertionError("training: 10 steps on one batch did not lower its NLL")
+
+    # -- timings -------------------------------------------------------------------
+    enc16 = copy.deepcopy(encoder).to(torch.bfloat16)
+
+    def step(enc):
+        s = aug(raw, draws=aug_draws)
+        stage2.train_step(net10, opt10, enc, s, stage2.conditioning(s, None), eps, ref)
+
+    step_ms = {}
+    for dt, enc in (("float32", encoder), ("bfloat16", enc16)):
+        for _ in range(2):
+            step(enc)
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            step(enc)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+        step_ms[dt] = statistics.median(lat) * 1e3
+        log(f"  [{card}] training step bs={n} compute_dtype={dt} (augment, encoder posterior, "
+            f"embedder, flow forward and backward, Adam): {step_ms[dt]:.3f} ms, "
+            f"{n / step_ms[dt] * 1e3:.1f} clips/s (median of 7 after 2 warm-ups)")
+    emb50 = net10.embed(cond)
+    post50 = stage2.posterior(encoder, seq, eps)
+
+    def flow_fwd_bwd():
+        gauss, logdet = net10.flow.plain(post50, emb50)
+        opt10.zero_grad(set_to_none=True)
+        flow_loss(gauss, logdet, noise=ref)[0].backward()
+
+    stages = {
+        "augment": cuda_ms(lambda: aug(raw, draws=aug_draws), iters=5, reps=5),
+        "encoder posterior fp32": cuda_ms(lambda: stage2.posterior(encoder, seq, eps), 3, 5),
+        "encoder posterior bf16": cuda_ms(lambda: stage2.posterior(enc16, seq, eps), 3, 5),
+        "embedder": cuda_ms(lambda: net10.embed(cond), iters=3, reps=5),
+        "flow forward + backward": cuda_ms(flow_fwd_bwd, iters=3, reps=5),
+    }
+    flow_fwd_bwd()
+    stages["optimizer update"] = cuda_ms(opt10.step, iters=5, reps=5)
+    log(f"  [{card}] training stages at bs={n}, each alone (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+    t0 = time.perf_counter()  # the trainer's validation pass
+    auxs = []
+    for i, batch in enumerate(loaders["eval"].epoch_iter(0)):
+        s = aug_eval(torch.from_numpy(batch["seq_raw"]).to(DEVICE))
+        m = s.shape[0]
+        auxs.append(stage2.eval_step(network, encoder, s, stage2.conditioning(s, None),
+                                     draws.normal("eval_posterior", 0, i, 0, (m, z)),
+                                     draws.normal("eval_reference", 0, i, 0, (m, z))))
+    val_loss = np.mean([float(aux["Loss"]) for aux in auxs])
+    val_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    evaluate_FVD_prior(loaders["eval"], aug_eval, network, decoder, z, opt, 0,
+                       weights_root=weights_root,
+                       residual=lambda i, shape: draws.prior(0, i, shape),
+                       on_dump_error=lambda e: None)  # no imageio on the card's machine
+    torch.cuda.synchronize()
+    fvd_s = time.perf_counter() - t0
+    log(f"  [{card}] validation pass ({n_eval} batches of {tr['bs_eval']}, forward kernel, "
+        f"loss {val_loss:.6g}) {val_s * 1e3:.1f} ms; prior FVD ({n_eval} batches: reverse kernel, fp32 decoder, I3D, "
+        f"Fréchet) {fvd_s * 1e3:.1f} ms")
+    rows = {}
+    p = network.flow.packed  # fp32 weights, the training path's mode
+    with torch.no_grad():
+        rows["flow_forward_fused"] = kernel_row(card, "training", "flow_forward_fused", p, post, emb)
+        rows["flow_reverse_fused"] = kernel_row(card, "training", "flow_reverse_fused", p, nu, emb)
+    for loader in loaders.values():
+        loader.framestore.close()
+    def traced_step():  # phase_trace runs its calls under no_grad; a step needs autograd
+        with torch.enable_grad():
+            step(encoder)
+
+    return launches, device_launches, traced_step, rows
+
+
 def _timeline_library(lib):
     from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
 
@@ -974,12 +1312,16 @@ def _union_us(spans) -> float:
     return total
 
 
-def phase_trace(card: str, label: str, call, filename: str, before_chain: str):
+def phase_trace(card: str, label: str, call, filename: str, before_chain: str,
+                spans: tuple[str, ...] = ()):
     """One torch.profiler window over two calls of ``call`` after two warm-up
     calls: the top device kernels, the flow chain's share, the device's idle
     share over the window's device span, and for each call the host time
     from its start to the first flow chain's launch against the device time
-    of the kernels launched before it (``before_chain`` names them)."""
+    of the kernels launched before it (``before_chain`` names them). With
+    ``spans``, the device time of the kernels launched inside each named
+    ``record_function`` span, on any thread (autograd's backward runs on its
+    own)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1000,9 +1342,9 @@ def phase_trace(card: str, label: str, call, filename: str, before_chain: str):
     if not device:
         log(f"  [{card}] trace: the profiler recorded no device activity; not measured")
         return
-    spans = [(e["ts"], e["ts"] + e["dur"]) for e in device]
-    span = max(b for _, b in spans) - min(a for a, _ in spans)
-    busy = _union_us(spans)
+    intervals = [(e["ts"], e["ts"] + e["dur"]) for e in device]
+    span = max(b for _, b in intervals) - min(a for a, _ in intervals)
+    busy = _union_us(intervals)
     by_name: dict[str, list[float]] = {}
     for e in device:
         by_name.setdefault(e["name"], []).append(e["dur"])
@@ -1017,6 +1359,20 @@ def phase_trace(card: str, label: str, call, filename: str, before_chain: str):
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
                  and "correlation" in e.get("args", {})}
+    if spans:
+        windows = {name: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                          if e.get("cat") == "user_annotation" and e.get("name") == name]
+                   for name in spans}
+        in_span = dict.fromkeys(spans, 0.0)
+        for e in device:
+            ts = launch_ts.get(e.get("args", {}).get("correlation"))
+            name = next((k for k, ws in windows.items() if ts is not None
+                         and any(a <= ts <= b for a, b in ws)), None)
+            if name is not None:
+                in_span[name] += e["dur"]
+        log(f"  [{card}] device time by span: " + ", ".join(
+            f"{k} {v / 1e3:.3f} ms ({v / total:.3f})" for k, v in in_span.items())
+            + f"; outside them {(total - sum(in_span.values())) / 1e3:.3f} ms")
     for i in range(2):
         window = [e for e in events if e.get("cat") == "user_annotation"
                   and e.get("name") == f"{label} #{i}"]
@@ -1078,7 +1434,12 @@ def main() -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
         e_launches, e_device_launches, synthesis_step = phase_eval(card, models, Path(tmp))
-    log(f"  phase 4c took {time.perf_counter() - t0:.2f} s")
+        log(f"  phase 4c took {time.perf_counter() - t0:.2f} s")
+        log("== 4d. stage-2 training (BAIR preset, random weights and I3D)")
+        t0 = time.perf_counter()
+        tr_launches, tr_device_launches, train_step, tr_rows = phase_train(
+            card, Path(tmp), str(Path(tmp) / "models"))
+    log(f"  phase 4d took {time.perf_counter() - t0:.2f} s")
 
     log("== 5. timings")
     rows = phase_timings(card, models, x0, residual)
@@ -1096,10 +1457,13 @@ def main() -> int:
                 "trace_model_transfer_bf16.json", "encoder, query embedder, input")
     phase_trace(card, "eval synthesis step bs=6 fp32", synthesis_step,
                 "trace_eval_synthesis_step.json", "embedder, input")
+    phase_trace(card, "stage-2 train step bs=50 fp32", train_step, "trace_train_step.json",
+                "no chain in a step", spans=TRAIN_SPANS)
 
     # each kernel at the shape its path gives it, in that path's mode (bf16
     # weights): the reverse at the BAIR sampling path's B=6, E=64, the forward
-    # at the transfer's one query, B=1, E=128; launches over all four windows
+    # at the transfer's one query, B=1, E=128; launches over all five windows;
+    # beside them each in the training path's fp32-weight mode at B=10, E=64
     kernels = []
     for name, line, r, shape, err_key in (
         ("flow_reverse_fused", 221, rows[("flow_reverse_fused", "bf16")], "B=6 C=64 E=64",
@@ -1110,13 +1474,14 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": f"{PALLAS_KERNEL}:{line}",
-            "launches": launches[name] + t_launches[name] + e_launches[name],
+            "launches": launches[name] + t_launches[name] + e_launches[name] + tr_launches[name],
             "device_launches": (device_launches[name] + t_device_launches[name]
-                                + e_device_launches[name]),
+                                + e_device_launches[name] + tr_device_launches[name]),
             "shape": f"{shape} hidden 512 20 blocks, bf16 weights",
             "max_abs_err": errs[err_key],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
+            "training_fp32": {k: tr_rows[name][k] for k in ("ms", "plain_ms", "bound_ms")},
         })
     print(card)  # as nvidia-smi --query-gpu=name,power.limit gives it
     print(json.dumps({"kernels": kernels}))

@@ -21,6 +21,17 @@ def get_loader(name: str, control: bool = False):
     )
 
 
+def augment_params(opt, mode: str):
+    """(params dict, random_crop flag, train flag) for ``build_augment``; the
+    train flag is ``mode == "train" and Data.aug``, as the reference gates
+    its train-time augmentation."""
+    ds = opt.Data["dataset"]
+    random_crop = ds in ("landscape", "Landscape", "DTDB", "dtdb")
+    train = mode == "train" and bool(opt.Data.get("aug", True))
+    params = dict(opt.Data.get("Augmentation", {}) or {})
+    return params, random_crop, train
+
+
 def get_eval_loader(name: str, length: int, path: str, config, control: bool = False):
     """Build the test-mode dataset, mutating the config like the reference:
     ``sequence_length`` and ``data_path`` are overwritten in place."""

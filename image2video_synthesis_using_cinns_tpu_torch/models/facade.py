@@ -132,7 +132,8 @@ class Model:
             encoder = Encoder.from_config(config_stage1.Encoder) if transfer else None
         if load_weights is not None:
             load_weights(decoder, flow, encoder)
-        flow.flow.pack_kernel_weights()
+        if flow.flow.use_kernel:
+            flow.flow.pack_kernel_weights()
         self.decoder = decoder.to(self.device, self.compute_dtype).eval()
         self.flow = flow.to(self.device).eval()
         self.encoder = None if encoder is None else encoder.to(self.device).eval()

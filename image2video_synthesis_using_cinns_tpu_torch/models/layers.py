@@ -69,8 +69,9 @@ class SNDense(nn.Module):
 class GroupNorm(nn.Module):
     """GroupNorm with torch's eps (1e-5) over (B, C, *spatial).
 
-    Statistics and the affine step are taken in float32, and the result is
-    cast back to the input's dtype, as the JAX layer does.
+    Statistics and the affine step are taken in float32 (float64 input stays
+    float64), and the result is cast back to the input's dtype, as the JAX
+    layer does.
     """
 
     def __init__(self, num_features: int, num_groups: int = 16, affine: bool = True,
@@ -88,9 +89,15 @@ class GroupNorm(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = None if self.weight is None else self.weight.float()
-        b = None if self.bias is None else self.bias.float()
-        return F.group_norm(x.float(), self.num_groups, w, b, self.eps).to(x.dtype)
+        dt = _stats_dtype(x)
+        w = None if self.weight is None else self.weight.to(dt)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.group_norm(x.to(dt), self.num_groups, w, b, self.eps).to(x.dtype)
+
+
+def _stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """float32, or the input's dtype where it is wider."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -102,7 +109,7 @@ class BatchNorm(nn.Module):
     """BatchNorm in eval mode: ``(x - mean) * rsqrt(var + eps) * weight + bias``
     from the running statistics (the JAX layer's ``batch_stats`` collection,
     carried to the ``mean``/``var`` buffers by the weight bridge). Computed in
-    float32 and cast back to the input's dtype."""
+    float32 (float64 input stays float64) and cast back to the input's dtype."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -113,7 +120,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
+        x32 = x.to(_stats_dtype(x))
         y = (x32 - _per_channel(self.mean, x)) * _per_channel(torch.rsqrt(self.var + self.eps), x)
         return (y * _per_channel(self.weight, x) + _per_channel(self.bias, x)).to(x.dtype)
 

@@ -14,7 +14,9 @@ multiplies the x-half of the coupling input by a per-block mask (0 on
 ``ConditionalFlow(use_kernel=True)`` runs the chain through the hand-written
 CUDA kernel (``ops/cuda/flow_kernel.py``) in bf16-weight mode, as the JAX
 package runs its Pallas kernel; only ``hidden_depth=2`` is specialised, and
-other depths take the plain path, as in the JAX package.
+other depths take the plain path, as in the JAX package. The trainer packs
+fp32 weights and runs the kernel where it needs no gradient (validation,
+sampling); ``actnorm_init`` is the data-dependent ActNorm initialisation.
 """
 
 from __future__ import annotations
@@ -98,6 +100,28 @@ def flow_reverse(blocks, shuffle, x, embedding, xmask):
     return x
 
 
+@torch.no_grad()
+def actnorm_init(blocks, shuffle, x, embedding, xmask):
+    """Data-dependent ActNorm init (the JAX package's ``actnorm_init``): for
+    each block in turn, ``loc = -mean`` and ``scale = 1 / (std + 1e-6)`` with
+    the unbiased std over the batch of that block's input, which is computed
+    through the chain with the new values. Returns (locs, scales), each
+    (n_flows, C)."""
+    locs, scales = [], []
+    for i in range(blocks["loc"].shape[0]):
+        loc = -x.mean(dim=0)
+        scale = 1.0 / (x.std(dim=0, correction=1) + 1e-6)
+        x = (x + loc) * scale
+        x = torch.where(x >= 0, x, INV_LRELU_ALPHA * x)
+        x, _ = _coupling(blocks["coupling"], i, 0, x, embedding, xmask[i], False)
+        x = _swap(x)
+        x, _ = _coupling(blocks["coupling"], i, 1, x, embedding, xmask[i], False)
+        x = x[:, shuffle["fwd"][i]]
+        locs.append(loc)
+        scales.append(scale)
+    return torch.stack(locs), torch.stack(scales)
+
+
 # --------------------------------------------------------------------------
 # module
 # --------------------------------------------------------------------------
@@ -146,8 +170,11 @@ class _Shuffle(nn.Module):
 class ConditionalFlow(nn.Module):
     """Owns the stacked block parameters and the shuffle buffers.
 
-    Call ``pack_kernel_weights()`` after loading weights: it builds the
-    kernel's packed bf16 weights once, as non-persistent buffers.
+    Call ``pack_kernel_weights()`` after loading weights and after every
+    change to them: it builds the kernel's packed weights, a copy held as
+    non-persistent buffers. ``use_kernel=True`` makes ``forward`` run the
+    kernel; ``fused`` runs it whatever ``use_kernel`` says (the trainer takes
+    gradients through the plain flow and runs the kernel where it needs none).
     """
 
     def __init__(self, in_channels: int, embedding_dim: int, hidden_dim: int,
@@ -158,7 +185,8 @@ class ConditionalFlow(nn.Module):
         self.blocks = _Blocks(n_flows, in_channels, embedding_dim, hidden_dim, hidden_depth)
         self.shuffle = _Shuffle(n_flows, in_channels)
         self.register_buffer("mask", control_mask(n_flows, control), persistent=False)
-        self.use_kernel = use_kernel and hidden_depth == flow_kernel.HIDDEN_DEPTH
+        self.kernel_depth = hidden_depth == flow_kernel.HIDDEN_DEPTH
+        self.use_kernel = use_kernel and self.kernel_depth
         self.packed: flow_kernel.PackedFlow | None = None
 
     def blocks_dict(self) -> dict:
@@ -175,28 +203,51 @@ class ConditionalFlow(nn.Module):
         return {"fwd": self.shuffle.fwd, "inv": self.shuffle.inv}
 
     @torch.no_grad()
-    def pack_kernel_weights(self) -> None:
-        """bf16 weights, as the JAX package's Pallas kernel streams them."""
-        if self.use_kernel:
+    def pack_kernel_weights(self, weight_dtype: torch.dtype = torch.bfloat16) -> None:
+        """Pack the weights in ``weight_dtype``: bf16, as the JAX package's
+        Pallas kernel streams them, or fp32, which rounds nowhere. A depth
+        the kernel does not take packs nothing."""
+        if self.kernel_depth:
             self.packed = flow_kernel.PackedFlow(
-                self.blocks_dict(), self.shuffle.fwd, self.shuffle.inv, self.mask, torch.bfloat16
+                self.blocks_dict(), self.shuffle.fwd, self.shuffle.inv, self.mask, weight_dtype
             )
 
-    def forward(self, x: torch.Tensor, embedding: torch.Tensor, reverse: bool = False):
-        if self.use_kernel:
-            if self.packed is None:
-                raise RuntimeError("call pack_kernel_weights() after loading the flow's weights")
-            fused = flow_kernel.flow_reverse_fused if reverse else flow_kernel.flow_forward_fused
-            x, embedding = x.contiguous(), embedding.contiguous()
-            m = flow_kernel.MAX_BATCH  # the kernel takes at most m rows a call
-            outs = [fused(self.packed, x[i:i + m], embedding[i:i + m])
-                    for i in range(0, x.shape[0], m)]
-            if reverse:
-                return torch.cat(outs)
-            return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+    def fused(self, x: torch.Tensor, embedding: torch.Tensor, reverse: bool = False):
+        """The chain through the kernel from the packed weights, at most
+        ``MAX_BATCH`` rows a launch; the plain flow at a depth the kernel
+        does not take, as the JAX package falls back to its scan."""
+        if not self.kernel_depth:
+            return self.plain(x, embedding, reverse)
+        if self.packed is None:
+            raise RuntimeError("call pack_kernel_weights() after loading the flow's weights")
+        fused = flow_kernel.flow_reverse_fused if reverse else flow_kernel.flow_forward_fused
+        x, embedding = x.contiguous(), embedding.contiguous()
+        m = flow_kernel.MAX_BATCH  # the kernel takes at most m rows a call
+        outs = [fused(self.packed, x[i:i + m], embedding[i:i + m])
+                for i in range(0, x.shape[0], m)]
+        if reverse:
+            return torch.cat(outs)
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+    def plain(self, x: torch.Tensor, embedding: torch.Tensor, reverse: bool = False):
+        """The plain float32 flow, which autograd differentiates."""
         if reverse:
             return flow_reverse(self.blocks_dict(), self.shuffle_dict(), x, embedding, self.mask)
         return flow_forward(self.blocks_dict(), self.shuffle_dict(), x, embedding, self.mask)
 
+    def forward(self, x: torch.Tensor, embedding: torch.Tensor, reverse: bool = False):
+        if self.use_kernel:
+            return self.fused(x, embedding, reverse)
+        return self.plain(x, embedding, reverse)
+
     def reverse(self, out: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
         return self(out, embedding, reverse=True)
+
+    @torch.no_grad()
+    def init_actnorm(self, x: torch.Tensor, embedding: torch.Tensor) -> None:
+        """Write the data-dependent ActNorm init (``actnorm_init``) on the
+        batch ``x`` into the parameters. The pack is not refreshed here."""
+        loc, scale = actnorm_init(self.blocks_dict(), self.shuffle_dict(), x, embedding,
+                                  self.mask)
+        self.blocks.actnorm.loc.copy_(loc)
+        self.blocks.actnorm.scale.copy_(scale)

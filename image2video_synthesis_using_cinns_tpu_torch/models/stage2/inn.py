@@ -68,6 +68,10 @@ class SupervisedTransformer(nn.Module):
     def reverse(self, out: torch.Tensor, cond: Sequence[torch.Tensor]) -> torch.Tensor:
         return self(out, cond, reverse=True)
 
+    def init_actnorm(self, x: torch.Tensor, cond: Sequence[torch.Tensor]) -> None:
+        """The flow's data-dependent ActNorm init on ``x`` under ``cond``."""
+        self.flow.init_actnorm(x, self.embed(cond))
+
     @classmethod
     def from_configs(cls, stage2_cfg, stage1_decoder_cfg, ae_cfg=None, use_kernel: bool = False):
         """Build from the chained configs (``Flow``, ``Conditioning_Model``,

@@ -12,14 +12,17 @@ split the same way on write.
 ``save`` writes the bytes the JAX package's ``save`` writes for the same tree
 (``flax.serialization.to_state_dict`` turns lists and tuples into maps keyed
 ``"0"``, ``"1"``, ...; every leaf with a shape, torch tensors included, is an
-ndarray; bf16 tensors keep the ``bfloat16`` dtype name). Reading a torch
-``.pth`` checkpoint, and ``save_async``/``wait``, are not ported yet.
+ndarray; bf16 tensors keep the ``bfloat16`` dtype name). ``AsyncWriter``
+writes on a background thread, as the JAX package's ``save_async``/``wait``
+do. Reading a torch ``.pth`` checkpoint is not ported yet.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import struct
+import threading
 from typing import Any
 
 import numpy as np
@@ -269,6 +272,61 @@ def save(path: str, payload: dict) -> None:
     with open(tmp, "wb") as f:
         f.write(data)
     os.replace(tmp, path)
+
+
+class AsyncWriter:
+    """Checkpoint writes on one background thread (the JAX package's
+    ``save_async``/``wait``): a bounded FIFO, so writes keep their order and
+    the trainer overlaps the next epoch with them, and blocks when 8 are
+    queued. An error of a queued write is raised by the next ``save_async``
+    or by ``wait``. Payloads must be host trees that the caller no longer
+    mutates. The thread starts at the first ``save_async``."""
+
+    def __init__(self):
+        self._q: queue.Queue | None = None
+        self._errors: list[BaseException] = []
+        self._lock = threading.Lock()
+
+    def _loop(self) -> None:
+        while True:
+            path, payload = self._q.get()
+            try:
+                save(path, payload)
+            except Exception as e:  # raised in the caller's thread by the next call
+                with self._lock:
+                    self._errors.append(e)
+            finally:
+                self._q.task_done()
+
+    def _raise_pending(self) -> None:
+        with self._lock:
+            errors, self._errors = self._errors, []
+        if len(errors) > 1:
+            raise RuntimeError(f"{len(errors)} checkpoint writes failed; first: "
+                               f"{errors[0]!r}") from errors[0]
+        if errors:
+            raise errors[0]
+
+    def save_async(self, path: str, payload: dict) -> None:
+        """Queue an atomic write of ``payload`` to ``path``; first raise the
+        error of an earlier write, if one failed."""
+        self._raise_pending()
+        if self._q is None:
+            self._q = queue.Queue(maxsize=8)
+            threading.Thread(target=self._loop, daemon=True).start()
+        self._q.put((path, payload))
+
+    def wait(self) -> None:
+        """Block until every queued write is on disk; raise a writer's error."""
+        if self._q is not None:
+            self._q.join()
+        self._raise_pending()
+
+
+def get_save_dict(variables: dict, opt_state: dict, epoch: int) -> dict:
+    """The trainers' checkpoint payload: ``epoch + 1``, the variables tree and
+    the optimizer's state (host trees)."""
+    return {"epoch": epoch + 1, "state_dict": variables, "optim_state_dict": opt_state}
 
 
 def load(path: str) -> dict:

@@ -26,6 +26,9 @@ buffers of the same names. ``actnorm_stats`` (``loc_init``, ``scale_init``,
 ``initialized``) is the bookkeeping of ActNorm's data-dependent
 initialisation; inference reads the ``loc``/``scale`` params, so it is
 dropped.
+
+``to_variables`` goes the other way for the backbones, the in-norm embedder
+and the flow, so that the port writes checkpoints the JAX package reads.
 """
 
 from __future__ import annotations
@@ -116,25 +119,35 @@ def to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
 
 
 def to_variables(state_dict: dict[str, torch.Tensor]) -> dict:
-    """state_dict of a metric backbone (convolutions without spectral norm and
-    frozen-BN leaves) -> the JAX variables tree ``{"params": ...}`` that
-    ``to_state_dict`` maps back onto it: the inverse of the bridge for those
-    modules, so the port can write backbone weights in the JAX package's
-    format."""
+    """state_dict -> the JAX variables tree that ``to_state_dict`` maps back
+    onto it, for the modules whose leaves it knows: convolutions without
+    spectral norm and frozen-BN leaves (the metric backbones, the in-norm
+    embedder), and the flow's stacked coupling layers (``weight`` (n, out,
+    in) -> ``w`` (n, in, out), ``bias`` -> ``b``), ActNorm ``loc``/``scale``
+    and shuffle permutations (``fwd``/``inv``, to the ``buffers``
+    collection as int32). Every array is a copy, so a tree handed to a
+    background writer does not change with the module."""
     params: dict = {}
+    buffers: dict = {}
     for key, t in state_dict.items():
         *path, name = key.split(".")
-        node = params
+        t = t.detach().cpu()
+        a = (t.float() if t.is_floating_point() else t).numpy().copy()
+        node = buffers if name in ("fwd", "inv") else params
         for p in path:
             node = node.setdefault(p, {})
-        a = t.detach().cpu().float().numpy()
-        if name == "weight" and a.ndim >= 3:  # (out, in, *k) -> (*k, in, out)
+        if name in ("fwd", "inv"):
+            node[name] = a.astype(np.int32)
+        elif "coupling" in path and name in ("weight", "bias"):
+            node["w" if name == "weight" else "b"] = (
+                np.ascontiguousarray(np.swapaxes(a, -1, -2)) if name == "weight" else a)
+        elif name == "weight" and a.ndim >= 3:  # (out, in, *k) -> (*k, in, out)
             node["kernel"] = np.ascontiguousarray(np.transpose(a, tuple(range(2, a.ndim)) + (1, 0)))
-        elif name in ("bias",) + _FROZEN_BN:
+        elif name in ("bias", "loc", "scale") + _FROZEN_BN:
             node[name] = a
         else:
-            raise ValueError(f"{key}: not a leaf of a metric backbone")
-    return {"params": params}
+            raise ValueError(f"{key}: a leaf the bridge cannot write back")
+    return {"params": params, **({"buffers": buffers} if buffers else {})}
 
 
 def load_checkpoint(module: torch.nn.Module, path: str) -> torch.nn.Module:

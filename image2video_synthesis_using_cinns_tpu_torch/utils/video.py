@@ -1,8 +1,8 @@
 """Video export (port of ``utils/video.py``): ``denorm``, ``convert_seq2gif``,
-``save_video`` and the MJPEG AVI writer and reader it falls back on.
-Sequences are numpy arrays (or CPU tensors) in the layout the facade returns,
-(B, T, C, H, W) in [-1, 1]. ``imageio`` and PIL are imported only where a
-file is written or read. ``plot_vid`` belongs to the training slices."""
+``save_video`` and the MJPEG AVI writer and reader it falls back on, and the
+trainers' ``plot_vid``. Sequences are numpy arrays (or CPU tensors) in the
+layout the facade returns, (B, T, C, H, W) in [-1, 1]. ``imageio`` and PIL
+are imported only where a file is written or read."""
 
 from __future__ import annotations
 
@@ -44,6 +44,29 @@ def save_video(path: str, video: np.ndarray, fps: int = 3, loops: int = 6) -> No
     for im in long_video:
         writer.append_data(im)
     writer.close()
+
+
+def plot_vid(opt, sequences, epoch: int = 0, mode: str = "train", path: str | None = None,
+             axis: int = 1) -> np.ndarray:
+    """Tile generated and real clips (two (B, T, C, H, W) arrays in [-1, 1])
+    next to each other, crop to a multiple of 16 px, write a GIF and a
+    looped video under ``<save_path>/videos/`` (or ``path``), and return the
+    frames as (T, C, H, W) uint8."""
+    import imageio
+
+    sequence_gen, sequence_orig = sequences
+    seq = np.concatenate((convert_seq2gif(sequence_gen), convert_seq2gif(sequence_orig)),
+                         axis=axis)
+    x, y = seq.shape[1] // 16 * 16, seq.shape[2] // 16 * 16
+    seq = seq[:, :x, :y]
+    if path is None:
+        base = os.path.join(opt.Training["save_path"], "videos", f"{epoch + 1:03d}_sequence_{mode}")
+        imageio.mimsave(base + ".gif", seq.astype(np.uint8), fps=3)
+        save_video(base + ".mp4", seq)
+    else:
+        imageio.mimsave(path + "seq.gif", seq.astype(np.uint8), fps=3)
+        save_video(path + "seq.mp4", seq)
+    return seq.astype(np.uint8).transpose(0, 3, 1, 2)
 
 
 def write_mjpeg_avi(

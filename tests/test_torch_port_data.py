@@ -240,5 +240,9 @@ def test_eval_augment_matches_jax(src, img_size):
 
 
 def test_augment_train_branch_raises():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        taugment(64, {"prob_hflip": 0.5}, False, True)
+    """The train branch takes its per-clip draws (drawn from an explicit
+    generator): called without them it raises instead of using a global
+    stream."""
+    raw = np.zeros((2, 3, 8, 8, 3), np.uint8)
+    with pytest.raises(ValueError, match="explicit generator"):
+        taugment(8, {"prob_hflip": 0.5}, False, True)(raw)
