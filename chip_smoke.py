@@ -60,6 +60,26 @@ Phases (any failure raises and the script exits non-zero):
    into a fresh cINN; 10 steps on one batch lower its NLL. Then the step's
    time at bs 50 (fp32 and bf16 encoder), its stages each alone, the
    validation pass and the prior FVD, and both chains in fp32 at B=10.
+   4e. Stage-1 training at the full BAIR preset: the trainer's ``train``
+   (``configs/stage1/bair_config.yaml``: the 3-D ResNet-18 encoder, the
+   SPADE/ADAIN decoder with spectral norm, the temporal and patch
+   discriminators, bs 10, 12-frame subsample, three Adams) over synthetic
+   train and eval splits of 20 clips in FrameStores, random full-size
+   networks, the LPIPS and I3D of 4c, 2 epochs of 2 steps (epoch 0 with the
+   discriminators gated) with the ActNorm init, validation, posterior FVD and
+   checkpoints, in its own counted window (no flow chain on this path).
+   Checks: every loss, PSNR, SSIM and the FVD finite; one whole step on the
+   card against the CPU at bs 1, in fp64 the metrics and the three
+   optimizers' gradients (``F64_LOSS_TOL``, ``F64_GRAD_TOL``), fp32
+   reported; a gated step leaves both discriminators' parameters bitwise and
+   their Adam counts at 0 while their ``u`` moves, an open one moves them;
+   the ActNorm init normalises each ActNorm's output (``ACTNORM_TOL``); the
+   run's GEN and ENC in the folded serving modules reconstruct as the
+   training modules (``SERVE_TOL``); every checkpoint reloads; 10 gated steps
+   at ``S1_LEARN_LR_SCALE`` of the config's lr on one batch lower its L1 (the
+   same at the config's lr reported). Then the step's time at bs 10 (fp32 and bf16)
+   and its peak memory, its stages each alone, the validation pass and the
+   posterior FVD.
 5. Timings: each kernel's median ms beside its plain version and its bound;
    the reverse chain at B = 1, 6 and 16; where a chain's time goes, from the
    timeline build (per layer and pass, and the kernel's own span), and a
@@ -72,13 +92,14 @@ Phases (any failure raises and the script exits non-zero):
    power limit.
 6. ``torch.profiler`` traces of two bf16 ``Model.forward`` calls, of two
    bf16 landscape ``Model.transfer`` calls, of two synthesis-eval steps
-   (sample a batch, all four backbones) and of two training steps (device
-   time by stage span): the top device kernels, the flow
+   (sample a batch, all four backbones), of two stage-2 training steps and
+   of two stage-1 training steps (device time by stage span): the top
+   device kernels, the flow
    chain's share, the device's idle share, and the host and device time
    before the first flow chain (the embedder; in transfer, the encoder and
    the query's embedding). The traces are written to ``smoke_out/`` (listed
    in ``.gitignore``).
-7. A ``{"kernels": [...]}`` line (launches summed over the five counted
+7. A ``{"kernels": [...]}`` line (launches summed over the six counted
    windows), then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is visible, and when the
@@ -88,6 +109,7 @@ port's package is not beside it.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import statistics
 import subprocess
@@ -161,6 +183,45 @@ F64_LOSS_TOL, F64_GRAD_TOL = 1e-10, 1e-8
 # relative to the loss; and the reverse chain back to the posterior (allclose)
 KERNEL_NLL_TOL, INVERSE_TOL = 1e-5, 1e-4
 TRAIN_SPANS = ("stage2/posterior", "stage2/embedder", "stage2/flow", "stage2/optimizer")
+# phase 4e, stage-1 training at the BAIR preset: configs/stage1/bair_config.yaml
+# (copied here), its 20 loader workers cut to the machine's 8, 2 epochs (epoch
+# 0 with the discriminators gated, epoch 1 open); synthetic train and eval
+# splits of 20 clips of 30 64x64 frames (2 steps of 10 clips an epoch, 2 eval
+# batches)
+S1_CLIPS, S1_EPOCHS = 20, 2
+S1_MODELS = dict(
+    Decoder=dict(channel_factor=64, z_dim=64, upsample_s=[2, 1], upsample_t=[2, 1],
+                 spectral_norm=True),
+    Encoder=dict(res_type_encoder="resnet18", deterministic=False, use_max_pool=False, z_dim=64,
+                 channels=[64, 128, 256, 512, 512], stride_t=[1, 2, 2, 2], stride_s=[1, 2, 2, 2]),
+    Discriminator_Temporal=dict(eval_seq_length=16, res_type_encoder="resnet18",
+                                deterministic=False, use_max_pool=True,
+                                channels=[64, 64, 128, 256, 512], stride_t=[2, 2, 2, 2],
+                                stride_s=[1, 1, 2, 2], spectral_norm=True),
+    Discriminator_Patch=dict(in_channels=3, ndf=64, n_layers=3, use_actnorm=True,
+                             spectral_norm=True))
+S1_TRAINING = dict(patch_GAN="basic", GAN_Loss="hinge", w_coup_s=1, w_coup_t=1, w_fmap_t=10,
+                   w_percep=30, w_recon=10, w_GP=10, w_kl=1.0e-05, subsample_length=12,
+                   pretrain=1, n_epochs=S1_EPOCHS, lr=0.0002, workers=TRAIN_WORKERS, bs=10,
+                   bs_eval=10, verbose_idx=30, weight_decay=1.0e-05, lr_gamma=0.98, FVD="FVD",
+                   savename="chip_smoke", reload_path="")
+S1_DATA = dict(sequence_length=17, dataset="BAIR", img_size=64, reverse=False, aug=True,
+               framestore="off", Augmentation=dict(brightness=0.1, contrast=0.1, saturation=0.1,
+                                                   hue=0, prob_hflip=0.5))
+S1_CHECK_BATCH = 1  # clips of the card-against-CPU step
+# the learning check's lr, a fraction of the config's (as the CPU step tests
+# take): at the config's 2e-4, fresh Adam's sign-like steps (beta1 0.5) have
+# left the random decoder's tanh saturated after the run's 4 steps, and 10
+# more move one batch's L1 up or down by chance (it is reported, not checked)
+S1_LEARN_LR_SCALE = 0.1
+# the ActNorm init: each ActNorm's output on the init frames, per channel,
+# |mean| and |std - 1| (the scale is 1 / (std + 1e-6), fp32 sums over the frames)
+ACTNORM_TOL = 1e-3
+# the run's checkpoints in the folded serving modules against the training
+# modules' eval forward (sigma folded in fp64 at load, divided in fp32 there)
+SERVE_TOL = 1e-5
+S1_SPANS = ("stage1/vae_forward", "stage1/disc_t", "stage1/disc_s", "stage1/spectral",
+            "stage1/vae_loss", "stage1/vae_backward", "stage1/optimizer")
 
 
 def log(*a):
@@ -1072,6 +1133,378 @@ def phase_train(card: str, tmp: Path, weights_root: str):
     return launches, device_launches, traced_step, rows
 
 
+def s1_config(tmp: Path, data_path: str):
+    from image2video_synthesis_using_cinns_tpu_torch.config import Config
+
+    return Config(dict(S1_MODELS, Training=dict(S1_TRAINING, save_path=str(tmp / "runs_s1")),
+                       Data=dict(S1_DATA, data_path=data_path), Logging={"mode": "disabled"}))
+
+
+def s1_step(models, tr, seq, draws, epoch: int, device, dtype):
+    """One stage-1 step (both phases, both refreshes) on copies of ``models``
+    in ``dtype`` on ``device`` with fresh optimizers: the metrics and each
+    optimizer's gradients as it applied them (host copies)."""
+    import copy
+
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.train import stage1_step
+
+    m = copy.deepcopy(models)
+    for module in (m.decoder, m.encoder, m.disc_t, m.disc_s, m.lpips):
+        module.to(device, dtype)
+    optimizers = stage1_step.make_optimizers(m, tr["lr"], tr["weight_decay"])
+    grads = {}
+    for name, o in zip(("AE", "DISC_t", "DISC_s"), optimizers):
+        def step(o=o, name=name, apply=o.step):
+            grads[name] = [p.grad.detach().cpu() for p in o.param_groups[0]["params"]]
+            apply()
+        o.step = step
+    d = stage1_step.StepDraws(draws.eps.to(dtype), draws.start, draws.patches)
+    metrics, _ = stage1_step.Stage1Step(m, optimizers, tr)(seq.to(device, dtype), epoch, d)
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def phase_train_stage1(card: str, tmp: Path, weights_root: str):
+    """Stage-1 training at the full BAIR preset: the trainer's ``train`` over
+    synthetic splits packed into FrameStores, random full-size networks, LPIPS
+    and the posterior FVD's I3D from ``weights_root``, checkpoints in ``tmp``,
+    in its own counted window (no flow chain on this path); then its checks,
+    its timings, and the step it traces."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.data import get_loader
+    from image2video_synthesis_using_cinns_tpu_torch.data.augment import build_augment
+    from image2video_synthesis_using_cinns_tpu_torch.data.framestore import FrameStore
+    from image2video_synthesis_using_cinns_tpu_torch.data.loader import Loader
+    from image2video_synthesis_using_cinns_tpu_torch.data.registry import augment_params
+    from image2video_synthesis_using_cinns_tpu_torch.models import layers
+    from image2video_synthesis_using_cinns_tpu_torch.models.stage1.decoder import Generator
+    from image2video_synthesis_using_cinns_tpu_torch.models.stage1.resnet3d import Encoder
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
+    from image2video_synthesis_using_cinns_tpu_torch.train import stage1, stage1_step
+    from image2video_synthesis_using_cinns_tpu_torch.train.fvd_eval import evaluate_FVD_posterior
+    from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint, convert
+
+    t0 = time.perf_counter()
+    root = tmp / "bair_train_s1"
+    bair_split(root, S1_CLIPS, "train", first_traj=40)
+    bair_split(root, S1_CLIPS, "eval", first_traj=60)
+    opt = s1_config(tmp, str(root) + "/")
+    tr = opt.Training
+    loaders = {}
+    for mode, bs, seed in (("train", tr["bs"], 42), ("eval", tr["bs_eval"], 43)):
+        ds = get_loader("BAIR")(opt, mode)
+        store = FrameStore.build(ds, str(tmp / f"s1_{mode}.fst"), imread=seeded_imread)
+        loaders[mode] = Loader(ds, bs, workers=tr["workers"], seed=seed, framestore=store)
+    models = stage1.build_models(opt, seed=0, weights_root=weights_root)
+    n_params = {name: sum(p.numel() for p in m.parameters())
+                for name, m in stage1.networks(models).items()}
+    log(f"  set-up {time.perf_counter() - t0:.2f} s: BAIR train and eval splits of {S1_CLIPS} "
+        f"clips packed, full-size random networks built (parameters: {n_params}), LPIPS from "
+        f"{weights_root}")
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = stage1.train(opt, models, loaders["train"], loaders["eval"], device=DEVICE,
+                       weights_root=weights_root)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, device_launches = dict(fk.launches), dict(fk.device_launches)
+    log(f"  stage-1 training chain launches: {launches}; device kernels: {device_launches}")
+    if any(launches.values()) or any(device_launches.values()):
+        raise AssertionError("stage-1 training launched a flow chain; its path has none")
+    n_steps = len(loaders["train"])
+    log(f"  [{card}] stage1.train bair bs={tr['bs']} bs_eval={tr['bs_eval']}, {S1_EPOCHS} epochs "
+        f"of {n_steps} steps (epoch 0 gated) with the ActNorm init, validation, posterior FVD "
+        f"and checkpoints: {wall:.3f} s; {out['global_step']} steps; train {out['train_metrics']}, "
+        f"eval {out['eval_metrics']}, PFVD {out['PFVD']}")
+    values = [*out["train_metrics"].values(), *out["eval_metrics"].values(), out["PFVD"]]
+    if out["global_step"] != S1_EPOCHS * n_steps or not all(np.isfinite(v) for v in values):
+        raise AssertionError(f"stage-1 training: a step is missing or a value is not finite: "
+                             f"{out}")
+    log("  every loss, PSNR, SSIM and the posterior FVD finite")
+
+    # -- the batch and draws of the checks -----------------------------------------
+    img, z = opt.Data["img_size"], opt.Decoder["z_dim"]
+    params_aug, random_crop, _ = augment_params(opt, "train")
+    aug = build_augment(img, params_aug, random_crop, True)
+    aug_eval = build_augment(img, params_aug, random_crop, False)
+    draws = stage1.Draws()
+    raw = torch.from_numpy(first_batch(loaders["train"])["seq_raw"]).to(DEVICE)
+    n = raw.shape[0]
+    seq = aug(raw, draws=draws.augment(0, 0, 0, n, params_aug, random_crop))
+    sub_len = int(tr["subsample_length"])
+    d = draws.step(0, 0, 0, n, z, seq.shape[1] - 1, sub_len)
+
+    # -- card against CPU: one whole step, gate open -------------------------------
+    b = S1_CHECK_BATCH
+    db = stage1_step.StepDraws(d.eps[:b], d.start,
+                               torch.randint(0, b * (seq.shape[1] - 1), (stage1_step.N_PATCH,),
+                                             generator=torch.Generator().manual_seed(5)))
+    runs, secs = {}, {}
+    for dev in ("card", "cpu"):
+        for dt in (torch.float64, torch.float32):
+            t1 = time.perf_counter()
+            runs[dev, dt] = s1_step(models, tr, seq[:b], db, 1, DEVICE if dev == "card" else "cpu",
+                                    dt)
+            secs[dev, dt] = time.perf_counter() - t1
+
+    def versus(a, c) -> tuple[float, float]:
+        """Metrics over max(|metric|, 1); each network's gradients over its
+        largest."""
+        (ma, ga), (mc, gc) = a, c
+        m_err = max(abs(ma[k] - mc[k]) / max(abs(mc[k]), 1.0) for k in mc)
+        g_err = 0.0
+        for name in gc:
+            scale = max(float(g.abs().max()) for g in gc[name])
+            g_err = max(g_err, max(float((x.double() - y.double()).abs().max())
+                                   for x, y in zip(ga[name], gc[name])) / scale)
+        return m_err, g_err
+
+    m64, g64 = versus(runs["card", torch.float64], runs["cpu", torch.float64])
+    m32, g32 = versus(runs["card", torch.float32], runs["cpu", torch.float32])
+    ok = m64 <= F64_LOSS_TOL and g64 <= F64_GRAD_TOL
+    log(f"  card vs CPU, one whole step at bs={b}, gate open (the same batch and draws; TF32 "
+        f"off; CPU {secs['cpu', torch.float64]:.1f} s fp64, {secs['cpu', torch.float32]:.1f} s "
+        f"fp32): fp64 metrics {m64:.3e} (bound {F64_LOSS_TOL:g}), the three optimizers' "
+        f"gradients {g64:.3e} (bound {F64_GRAD_TOL:g}) {'ok' if ok else 'FAIL'}; fp32 (reported) "
+        f"metrics {m32:.3e}, gradients {g32:.3e}")
+    if not ok:
+        raise AssertionError("stage-1 training: the card's fp64 step disagrees with the CPU's")
+    del runs
+
+    # -- the gate --------------------------------------------------------------------
+    gm = copy.deepcopy(models)
+    gopts = stage1_step.make_optimizers(gm, tr["lr"], tr["weight_decay"])
+    gstep = stage1_step.Stage1Step(gm, gopts, tr)
+    discs = {"DISC_t": gm.disc_t, "DISC_s": gm.disc_s}
+
+    def snapshot():
+        return {k: ([p.detach().clone() for p in m.parameters()],
+                    [b.clone() for name, b in m.named_buffers() if name.endswith(".u")])
+                for k, m in discs.items()}
+
+    before = snapshot()
+    gstep(seq, 0, d)
+    after = snapshot()
+    for k in discs:
+        same = all(torch.equal(p, q) for p, q in zip(before[k][0], after[k][0]))
+        u_moved = max(float((p - q).abs().max()) for p, q in zip(before[k][1], after[k][1]))
+        ok = same and u_moved > 0 and gopts[1].count == gopts[2].count == 0
+        log(f"  gate closed (epoch 0): {k} parameters bitwise unchanged {same}, Adam count "
+            f"{gopts[1 if k == 'DISC_t' else 2].count}, spectral u moved by up to {u_moved:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"stage-1 training: the closed gate let {k} change")
+    gstep(seq, 1, d)
+    opened = snapshot()
+    for k in discs:
+        moved = max(float((p - q).abs().max()) for p, q in zip(after[k][0], opened[k][0]))
+        log(f"  gate open (epoch 1): {k} parameters moved by up to {moved:.3e} "
+            f"{'ok' if moved > 0 else 'FAIL'}")
+        if not moved > 0:
+            raise AssertionError(f"stage-1 training: the open gate left {k} unchanged")
+    del gm, gopts, gstep
+
+    # -- the ActNorm init on the first batch's 20 frames, start frames included --------
+    ds = copy.deepcopy(models.disc_s)
+    outputs = {}
+    hooks = [m.register_forward_hook(lambda mod, i, o, name=name: outputs.__setitem__(name, o))
+             for name, m in ds.named_modules() if isinstance(m, layers.ActNormImage)]
+    frames = seq.reshape((-1,) + seq.shape[2:])[:stage1_step.N_PATCH].permute(0, 3, 1, 2)
+    layers.init_actnorm(ds, frames)
+    for h in hooks:
+        h.remove()
+    worst = max(max(float(o.mean((0, 2, 3)).abs().max()),
+                    float((o.std((0, 2, 3)) - 1).abs().max())) for o in outputs.values())
+    log(f"  ActNorm init on {frames.shape[0]} frames: each of the {len(outputs)} ActNorms' output "
+        f"per channel, worst |mean| or |std - 1| {worst:.3e} (bound {ACTNORM_TOL:g}) "
+        f"{'ok' if worst <= ACTNORM_TOL else 'FAIL'}")
+    if not worst <= ACTNORM_TOL or len(outputs) != 3:
+        raise AssertionError("stage-1 training: the ActNorm init does not normalise")
+    del ds, outputs
+
+    # -- the hand-off to serving and the checkpoints -----------------------------------
+    run = Path(out["save_path"])
+    eb = first_batch(loaders["eval"])
+    eseq = aug_eval(torch.from_numpy(eb["seq_raw"]).to(DEVICE))
+    e_eps = draws.normal("eval_posterior", 0, 0, 0, (eseq.shape[0], z))
+    _, gen_train = stage1_step.eval_step(models, eseq, e_eps)
+    dec_s = convert.load_checkpoint(Generator.from_config(opt.Decoder),
+                                    str(run / "latest_checkpoint_GEN.msgpack")).to(DEVICE).eval()
+    enc_s = convert.load_checkpoint(Encoder.from_config(opt.Encoder),
+                                    str(run / "latest_checkpoint_ENC.msgpack")).to(DEVICE).eval()
+    with torch.no_grad():
+        video = eseq.permute(0, 4, 1, 2, 3)
+        motion = enc_s(video[:, :, 1:], noise=e_eps)[0]
+        gen_serve = dec_s(video[:, :, 0], motion).permute(0, 2, 1, 3, 4)
+    check_rel("train s1: the run's GEN and ENC in the folded serving modules reconstruct as the "
+              "training modules", gen_serve, gen_train, SERVE_TOL)
+    del dec_s, enc_s
+    networks = stage1.networks(models)
+    fresh = {"GEN": lambda: Generator.from_config(opt.Decoder, trainable=True),
+             "ENC": lambda: Encoder.from_config(opt.Encoder, trainable=True),
+             "DISC_t": lambda: type(models.disc_t).from_config(opt.Discriminator_Temporal),
+             "DISC_s": lambda: type(models.disc_s).from_config(opt.Discriminator_Patch)}
+    for name, key in ([(f"latest_checkpoint_{k}", k) for k in stage1.NETWORKS]
+                      + [(f"best_PFVD_{k}", k) for k in ("GEN", "ENC")]):
+        payload = checkpoint.load(str(run / f"{name}.msgpack"))
+        module = fresh[key]()
+        stage1.load_variables(module, payload["state_dict"])
+        mine = networks[key].state_dict()
+        if name.startswith("latest"):
+            same = all(torch.equal(t, mine[k].cpu()) for k, t in module.state_dict().items())
+            log(f"  {name}.msgpack (epoch {payload['epoch']}) reloads into a fresh module, equal "
+                f"to the trained one {same} {'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"stage-1 training: {name} does not reload the run's state")
+        else:
+            finite = all(bool(torch.isfinite(t).all()) for t in module.state_dict().values())
+            log(f"  {name}.msgpack (epoch {payload['epoch']}, the best) reloads, finite {finite}")
+            if not finite:
+                raise AssertionError(f"stage-1 training: {name} is not finite")
+        del payload, module
+
+    # -- learning: 10 steps with the gate closed on one batch, from the run's networks --
+    def learn(lr: float) -> tuple[list[float], float]:
+        """Each step's L1 of the batch (eval forward, the step's eps), before
+        and after; the share of generated pixels beyond |0.99| before."""
+        lm = copy.deepcopy(models)
+        lstep = stage1_step.Stage1Step(lm, stage1_step.make_optimizers(lm, lr,
+                                                                       tr["weight_decay"]), tr)
+        metrics, gen = stage1_step.eval_step(lm, seq, d.eps)
+        saturated = float((gen.abs() > 0.99).float().mean())
+        l1 = [float(metrics["Loss_L1"])]
+        for _ in range(10):
+            lstep(seq, 0, d)
+            l1.append(float(stage1_step.eval_step(lm, seq, d.eps)[0]["Loss_L1"]))
+        return l1, saturated
+
+    lr_learn = tr["lr"] * S1_LEARN_LR_SCALE
+    for lr in (tr["lr"], lr_learn):
+        l1, saturated = learn(lr)
+        ok = l1[-1] < l1[0]
+        verdict = ("ok" if ok else "FAIL") if lr == lr_learn else "reported"
+        log(f"  10 steps with the gate closed at lr {lr:g} on one batch of {n} (the run's "
+            f"networks, {saturated:.4f} of their generated pixels beyond |0.99|): its Loss_L1 "
+            f"{l1[0]:.6g} -> {l1[-1]:.6g} {verdict}; after each step "
+            + " ".join(f"{x:.5f}" for x in l1[1:]))
+        if lr == lr_learn and not ok:
+            raise AssertionError("stage-1 training: 10 steps on one batch did not lower its L1")
+
+    # -- timings ------------------------------------------------------------------------
+    tm = copy.deepcopy(models)
+    topts = stage1_step.make_optimizers(tm, tr["lr"], tr["weight_decay"])
+    step_ms, peak = {}, {}
+    for dt in ("float32", "bfloat16"):
+        tstep = stage1_step.Stage1Step(tm, topts, dict(tr, compute_dtype=dt))
+        for _ in range(2):
+            tstep(seq, 1, d)
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(7):
+            t1 = time.perf_counter()
+            tstep(seq, 1, d)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t1)
+        step_ms[dt] = statistics.median(lat) * 1e3
+        uncollected = torch.cuda.memory_allocated() / 2**30
+        gc.collect()  # earlier phases can leave cyclic garbage on the card until a collection
+        resident = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        tstep(seq, 1, d)
+        torch.cuda.synchronize()
+        peak[dt] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  [{card}] stage-1 training step bs={n}, gate open, compute_dtype={dt} (VAE "
+            f"forward, both discriminators with the GP, VAE loss and backward, three Adams, "
+            f"spectral refresh): {step_ms[dt]:.3f} ms, {n / step_ms[dt] * 1e3:.1f} clips/s "
+            f"(median of 7 after 2 warm-ups); peak memory {peak[dt]:.2f} GiB, of which "
+            f"{peak[dt] - resident:.2f} GiB above the {resident:.2f} GiB allocated before the "
+            f"step (every phase's live models and optimizer states; {uncollected:.2f} GiB before "
+            f"collecting garbage)")
+    tstep = stage1_step.Stage1Step(tm, topts, tr)
+    with torch.no_grad():
+        fwd = tstep.forward_vae(seq, d.eps)
+        gen_d, orig = fwd["gen"], fwd["orig"]
+    fake_t, real_t = tstep.subsample(gen_d, orig, d.start)
+    fake_s, real_s = tstep.patch_frames(gen_d, orig, d.patches)
+    dt_params, ds_params = list(tm.disc_t.parameters()), list(tm.disc_s.parameters())
+    ae_params = [*tm.decoder.parameters(), *tm.encoder.parameters()]
+
+    def disc_t_gp():
+        total, _ = tstep.disc_t_loss(fake_t, real_t, create_graph=True)
+        torch.autograd.grad(total, dt_params)
+
+    def disc_s():
+        total, _ = tstep.disc_s_loss(fake_s, real_s)
+        torch.autograd.grad(total, ds_params)
+
+    def vae_all():
+        with torch.enable_grad():
+            total, _ = tstep.vae_loss(tstep.forward_vae(seq, d.eps), d, 1.0)
+            torch.autograd.grad(total, ae_params)
+
+    def vae_forward_loss():
+        with torch.enable_grad():
+            tstep.vae_loss(tstep.forward_vae(seq, d.eps), d, 1.0)
+
+    def optimizers():
+        for o in topts:
+            o.step()
+
+    def refresh():
+        for m in (tm.disc_t, tm.disc_s, tm.decoder):
+            layers.power_iteration_(m)
+
+    stages = {
+        "VAE forward": cuda_ms(lambda: tstep.forward_vae(seq, d.eps), iters=3, reps=5),
+        "temporal discriminator with the GP (loss and gradients)": cuda_ms(disc_t_gp, 3, 5),
+        "patch discriminator (loss and gradients)": cuda_ms(disc_s, iters=3, reps=5),
+        "VAE forward and loss": cuda_ms(vae_forward_loss, iters=3, reps=5),
+        "VAE forward, loss and backward": cuda_ms(vae_all, iters=3, reps=5),
+        "three optimizers": cuda_ms(optimizers, iters=5, reps=5),
+        "spectral refresh": cuda_ms(refresh, iters=5, reps=5),
+    }
+    stages["VAE backward (the difference)"] = (stages["VAE forward, loss and backward"]
+                                               - stages["VAE forward and loss"])
+    log(f"  [{card}] stage-1 stages at bs={n}, each alone (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    del fwd, gen_d, orig, fake_t, real_t, fake_s, real_s
+
+    t0 = time.perf_counter()  # the trainer's validation pass
+    vals = []
+    for i, batch in enumerate(loaders["eval"].epoch_iter(0)):
+        s = aug_eval(torch.from_numpy(batch["seq_raw"]).to(DEVICE))
+        vals.append(stage1_step.eval_step(models, s, draws.normal(
+            "eval_posterior", 0, i, 0, (s.shape[0], z)))[0])
+    val_l1 = float(np.mean([float(v["Loss_L1"]) for v in vals]))
+    val_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pfvd = evaluate_FVD_posterior(loaders["eval"], aug_eval, models.decoder, models.encoder,
+                                  "FVD", weights_root, noise=draws.fvd_posterior)
+    torch.cuda.synchronize()
+    fvd_s = time.perf_counter() - t0
+    log(f"  [{card}] validation pass ({len(vals)} batches of {tr['bs_eval']}: encoder, decoder, "
+        f"LPIPS, PSNR, SSIM; Loss_L1 {val_l1:.6g}) {val_s * 1e3:.1f} ms; posterior FVD "
+        f"({len(vals)} batches: encoder, fp32 decoder, I3D, Fréchet; {pfvd:.6g}) "
+        f"{fvd_s * 1e3:.1f} ms")
+    for loader in loaders.values():
+        loader.framestore.close()
+
+    trace_step = stage1_step.Stage1Step(tm, topts, tr)
+
+    def traced_step():  # phase_trace runs its calls under no_grad; a step needs autograd
+        with torch.enable_grad():
+            trace_step(seq, 1, d)
+
+    return launches, device_launches, traced_step
+
+
 def _timeline_library(lib):
     from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
 
@@ -1439,7 +1872,12 @@ def main() -> int:
         t0 = time.perf_counter()
         tr_launches, tr_device_launches, train_step, tr_rows = phase_train(
             card, Path(tmp), str(Path(tmp) / "models"))
-    log(f"  phase 4d took {time.perf_counter() - t0:.2f} s")
+        log(f"  phase 4d took {time.perf_counter() - t0:.2f} s")
+        log("== 4e. stage-1 training (BAIR preset, random weights, LPIPS and I3D)")
+        t0 = time.perf_counter()
+        s1_launches, s1_device_launches, s1_train_step = phase_train_stage1(
+            card, Path(tmp), str(Path(tmp) / "models"))
+    log(f"  phase 4e took {time.perf_counter() - t0:.2f} s")
 
     log("== 5. timings")
     rows = phase_timings(card, models, x0, residual)
@@ -1459,10 +1897,12 @@ def main() -> int:
                 "trace_eval_synthesis_step.json", "embedder, input")
     phase_trace(card, "stage-2 train step bs=50 fp32", train_step, "trace_train_step.json",
                 "no chain in a step", spans=TRAIN_SPANS)
+    phase_trace(card, "stage-1 train step bs=10 fp32", s1_train_step,
+                "trace_train_stage1_step.json", "no chain in a step", spans=S1_SPANS)
 
     # each kernel at the shape its path gives it, in that path's mode (bf16
     # weights): the reverse at the BAIR sampling path's B=6, E=64, the forward
-    # at the transfer's one query, B=1, E=128; launches over all five windows;
+    # at the transfer's one query, B=1, E=128; launches over all six windows;
     # beside them each in the training path's fp32-weight mode at B=10, E=64
     kernels = []
     for name, line, r, shape, err_key in (
@@ -1474,9 +1914,11 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": f"{PALLAS_KERNEL}:{line}",
-            "launches": launches[name] + t_launches[name] + e_launches[name] + tr_launches[name],
+            "launches": (launches[name] + t_launches[name] + e_launches[name] + tr_launches[name]
+                         + s1_launches[name]),
             "device_launches": (device_launches[name] + t_device_launches[name]
-                                + e_device_launches[name] + tr_device_launches[name]),
+                                + e_device_launches[name] + tr_device_launches[name]
+                                + s1_device_launches[name]),
             "shape": f"{shape} hidden 512 20 blocks, bf16 weights",
             "max_abs_err": errs[err_key],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -24,8 +24,11 @@ WEIGHT_FILE = os.path.join("lpips", "vgg_lpips.msgpack")
 RANDOM_INIT_SEED = 0
 
 
-def load_lpips(weights_root: str = "models", device=None) -> LPIPS:
-    path = ckpt_io.find(os.path.splitext(os.path.join(weights_root, WEIGHT_FILE))[0])
+def load_lpips(weights_root: str = "models", device=None, path: str | None = None) -> LPIPS:
+    """LPIPS from ``path`` when given, else from under ``weights_root``, else
+    with its fixed-seed random weights."""
+    if path is None:
+        path = ckpt_io.find(os.path.splitext(os.path.join(weights_root, WEIGHT_FILE))[0])
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(RANDOM_INIT_SEED)
         module = LPIPS()

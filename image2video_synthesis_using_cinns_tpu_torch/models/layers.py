@@ -1,10 +1,24 @@
 """Shared layers (port of ``models/layers.py``): convolution and dense layers
-whose spectral norm is folded into the weight at load, GroupNorm, BatchNorm
-and ActNorm at inference, pooling.
+with spectral norm, GroupNorm, BatchNorm and ActNorm at inference, ActNorm's
+data-dependent initialisation, pooling.
+
+Spectral norm has two forms. The serving modules fold sigma into the weight
+at load (``utils/convert.py``) and carry no flag. A layer built with
+``spectral=True`` (the trainers') keeps the raw ``weight`` and the stored
+vectors in the buffers ``u`` (out,) and ``v`` (in * prod(k),), and divides
+the weight by sigma = u^T W_mat v from those vectors on every forward, so
+the gradient flows through W alone (the JAX layer with the ``spectral``
+collection immutable, ``models/layers.py:113-124``). ``power_iteration_``
+refreshes the vectors once, with no gradient, as the JAX trainer's
+``mutable=["spectral"]`` pass does after each update. This is not
+``torch.nn.utils.spectral_norm``, which iterates on every training forward
+and divides by the refreshed vectors' sigma.
 
 Weights use torch's layout: a conv weight is (out, in, *k), a dense weight
 is (out, in). Random initialisation follows torch's defaults (uniform in
-+-1/sqrt(fan_in)), the same distribution the JAX package draws from.
++-1/sqrt(fan_in)), the same distribution the JAX package draws from;
+``orthogonal_`` and ``normal_002_`` are the temporal and patch
+discriminators' inits (``models/layers.py:41-68``).
 """
 
 from __future__ import annotations
@@ -16,19 +30,58 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import spectral as sn
+
 
 def _uniform_(t: torch.Tensor, fan_in: int) -> None:
     bound = 1.0 / math.sqrt(fan_in)
     nn.init.uniform_(t, -bound, bound)
 
 
-class SNConv(nn.Module):
-    """2-D or 3-D convolution, channels-first; the spectral-norm scale of a
-    ``use_spectral`` layer is folded into ``weight`` by the weight bridge."""
+def orthogonal_(weight: torch.Tensor) -> torch.Tensor:
+    """torch's ``orthogonal_`` on the (out, -1) matrix of a weight."""
+    with torch.no_grad():
+        return nn.init.orthogonal_(weight.view(weight.shape[0], -1)).view_as(weight)
+
+
+def normal_002_(weight: torch.Tensor) -> torch.Tensor:
+    """N(0, 0.02), the patch discriminator's conv init."""
+    with torch.no_grad():
+        return weight.normal_(0.0, 0.02)
+
+
+class _Spectral(nn.Module):
+    """The trainable spectral norm of ``SNConv``/``SNDense`` (see the module
+    docstring); ``spectral=False`` leaves ``weight`` as it is."""
+
+    def _init_spectral(self, spectral: bool) -> None:
+        self.spectral = spectral
+        if spectral:
+            n_out, n_in = sn.kernel_to_matrix(self.weight).shape
+            self.register_buffer("u", F.normalize(torch.randn(n_out), dim=0, eps=1e-12))
+            self.register_buffer("v", F.normalize(torch.randn(n_in), dim=0, eps=1e-12))
+
+    def effective_weight(self) -> torch.Tensor:
+        if not self.spectral:
+            return self.weight
+        return self.weight / sn.sigma(self.weight, self.u, self.v)
+
+    @torch.no_grad()
+    def power_iteration_(self) -> None:
+        """One power iteration of the raw weight from the stored ``u``."""
+        u, v = sn.spectral_normalize(self.weight, self.u)
+        self.u.copy_(u)
+        self.v.copy_(v)
+
+
+class SNConv(_Spectral):
+    """2-D or 3-D convolution, channels-first. Without ``spectral`` the
+    weight is used as it is (a serving module's, with sigma folded in at
+    load); with it, divided by sigma from the stored vectors."""
 
     def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
                  stride: int | Sequence[int] = 1, padding: int | Sequence[int] = 0,
-                 bias: bool = True):
+                 bias: bool = True, spectral: bool = False):
         super().__init__()
         self.kernel_size = tuple(kernel_size)
         if len(self.kernel_size) not in (2, 3):
@@ -43,16 +96,18 @@ class SNConv(nn.Module):
             _uniform_(self.bias, fan_in)
         else:
             self.register_parameter("bias", None)
+        self._init_spectral(spectral)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = F.conv2d if len(self.kernel_size) == 2 else F.conv3d
-        return conv(x, self.weight, self.bias, self.stride, self.padding)
+        return conv(x, self.effective_weight(), self.bias, self.stride, self.padding)
 
 
-class SNDense(nn.Module):
-    """Linear layer; (out, in) weight with any spectral scale folded in."""
+class SNDense(_Spectral):
+    """Linear layer with an (out, in) weight, spectral as ``SNConv``."""
 
-    def __init__(self, in_features: int, features: int, bias: bool = True):
+    def __init__(self, in_features: int, features: int, bias: bool = True,
+                 spectral: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, in_features))
         _uniform_(self.weight, in_features)
@@ -61,9 +116,19 @@ class SNDense(nn.Module):
             _uniform_(self.bias, in_features)
         else:
             self.register_parameter("bias", None)
+        self._init_spectral(spectral)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self.effective_weight(), self.bias)
+
+
+def power_iteration_(module: nn.Module) -> None:
+    """Refresh the stored vectors of every spectral layer in ``module``: the
+    port of the JAX trainer's ``mutable=["spectral"]`` pass, whose output is
+    discarded and whose new (u, v) depend only on W and the old u."""
+    for m in module.modules():
+        if isinstance(m, _Spectral) and m.spectral:
+            m.power_iteration_()
 
 
 class GroupNorm(nn.Module):
@@ -126,16 +191,42 @@ class BatchNorm(nn.Module):
 
 
 class ActNormImage(nn.Module):
-    """Per-channel affine ``scale * (x + loc)`` at inference; the data-dependent
-    initialisation of ``loc``/``scale`` belongs to training."""
+    """Per-channel affine ``scale * (x + loc)``. While ``initializing`` is set
+    (``init_actnorm``), a forward first sets ``loc = -mean`` and
+    ``scale = 1 / (std + 1e-6)`` from its input's per-channel statistics
+    over (B, *spatial), std with ddof 1 (``models/layers.py:436-470``)."""
 
     def __init__(self, num_features: int):
         super().__init__()
         self.loc = nn.Parameter(torch.zeros(num_features))
         self.scale = nn.Parameter(torch.ones(num_features))
+        self.initializing = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.initializing:
+            with torch.no_grad():
+                x32 = x.to(_stats_dtype(x))
+                dims = [0] + list(range(2, x.ndim))
+                self.loc.copy_(-x32.mean(dims))
+                self.scale.copy_(1.0 / (x32.std(dims, correction=1) + 1e-6))
         return _per_channel(self.scale, x) * (x + _per_channel(self.loc, x))
+
+
+@torch.no_grad()
+def init_actnorm(module: nn.Module, *inputs) -> None:
+    """The data-dependent init of every ``ActNormImage`` in ``module``: one
+    forward of ``inputs`` in which each ActNorm initialises from what reaches
+    it, so each later one sees the output the earlier ones normalised (the
+    JAX package's train pass with ``actnorm_stats`` mutable, then
+    ``merge_actnorm_init``)."""
+    norms = [m for m in module.modules() if isinstance(m, ActNormImage)]
+    for m in norms:
+        m.initializing = True
+    try:
+        module(*inputs)
+    finally:
+        for m in norms:
+            m.initializing = False
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:

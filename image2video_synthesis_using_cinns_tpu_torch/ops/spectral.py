@@ -1,9 +1,14 @@
-"""Spectral normalisation at inference (port of ``ops/spectral.py:34-68``).
+"""Spectral normalisation (port of ``ops/spectral.py:34-68``).
 
-In eval mode torch's ``spectral_norm`` divides the weight by
-sigma = u^T W_mat v, computed from the stored vectors u and v with no power
-iteration. That division is the same on every call, so the port folds it
-into the weight once, when the checkpoint is loaded (``utils/convert.py``).
+torch's ``spectral_norm`` divides the weight by sigma = u^T W_mat v. At
+inference sigma comes from the stored vectors u and v with no power
+iteration; that division is the same on every call, so the serving modules
+fold it into the weight once, when the checkpoint is loaded (``fold``,
+``utils/convert.py``). Training keeps the raw weight and the vectors
+(``models/layers.py``): every forward divides by sigma from the stored
+vectors, so the gradient flows through W alone, and one power iteration
+(``spectral_normalize``) refreshes them once a step, as the JAX trainer's
+``mutable=["spectral"]`` pass does.
 """
 
 from __future__ import annotations
@@ -29,3 +34,17 @@ def fold(weight: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     """W / sigma, computed in float64 and returned in the weight's dtype."""
     w64 = weight.double()
     return (w64 / sigma(w64, u.double(), v.double())).to(weight.dtype)
+
+
+def _l2normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x / (torch.linalg.vector_norm(x) + eps)
+
+
+@torch.no_grad()
+def spectral_normalize(weight: torch.Tensor, u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One power iteration of W_mat from the stored ``u``: v <- normalize(W_mat^T
+    u), u <- normalize(W_mat v), each normalised by its L2 norm plus 1e-12.
+    Returns the new (u, v); no gradient."""
+    w = kernel_to_matrix(weight)
+    v = _l2normalize(w.t() @ u)
+    return _l2normalize(w @ v), v

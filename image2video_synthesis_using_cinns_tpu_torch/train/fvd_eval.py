@@ -1,5 +1,6 @@
-"""Training-time FVD of samples from the prior (port of ``train/fvd_eval.py``:
-``_stream_fvd`` and ``evaluate_FVD_prior``).
+"""Training-time FVD (port of ``train/fvd_eval.py``): of samples from the
+prior for stage 2 (``evaluate_FVD_prior``), of reconstructions from the
+posterior for stage 1 (``evaluate_FVD_posterior``).
 
 Each eval batch is augmented (the eval transform), nu is drawn by the
 caller (the trainer seeds it by the epoch, as the JAX package draws from
@@ -11,8 +12,12 @@ and of the real frames after the first are streamed on the device
 file raises ``FileNotFoundError``. Ten sampled clips, picked among the first
 40, are written beside the real ones as a GIF; that dump is best effort, as
 in the JAX package (``imageio`` may be missing), and its failure goes to
-``on_dump_error`` (a warning by default). ``evaluate_FVD_posterior`` belongs
-to stage-1 training.
+``on_dump_error`` (a warning by default).
+
+``evaluate_FVD_posterior`` reconstructs each augmented eval batch: the
+encoder's posterior sample of frames 1: with one fixed eps (the caller's
+``noise``: the JAX package draws it from ``PRNGKey(1)`` for every batch),
+decoded from frame 0, scored against frames 1:.
 """
 
 from __future__ import annotations
@@ -90,4 +95,24 @@ def evaluate_FVD_prior(loader, aug, network, decoder, z_dim: int, opt, epoch: in
             wandb_sink.log_video("eval_video", gif)
     except Exception as e:  # the GIF dump is best effort, as in the JAX package
         on_dump_error(e)
+    return float(frechet_from_activations(np.asarray(act1), np.asarray(act2)))
+
+
+def evaluate_FVD_posterior(loader, aug, decoder, encoder, mode: str = "FVD",
+                           weights_root: str = "models", *,
+                           noise: Callable[[tuple], torch.Tensor]) -> float:
+    """FVD (kinetics I3D) or DTFVD (DT-16) of stage-1 reconstructions against
+    the eval split; ``noise(shape)`` gives the encoder's eps on the CPU."""
+    device = next(decoder.parameters()).device
+    model = fvd_mod.load_model("kinetics" if mode == "FVD" else "dt16", weights_root, device)
+
+    @torch.no_grad()
+    def run(i: int, batch: dict):
+        seq = aug(torch.from_numpy(batch["seq_raw"]).to(device))  # (B, T, H, W, 3)
+        video = seq.permute(0, 4, 1, 2, 3)
+        motion = encoder(video[:, :, 1:], noise=noise((seq.shape[0], encoder.z_dim)))[0]
+        return (decoder(video[:, :, 0], motion).permute(0, 2, 1, 3, 4),
+                video[:, :, 1:].permute(0, 2, 1, 3, 4))
+
+    act1, act2, _, _ = _stream_fvd(run, loader, model)
     return float(frechet_from_activations(np.asarray(act1), np.asarray(act2)))

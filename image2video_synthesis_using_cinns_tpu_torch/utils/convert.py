@@ -10,7 +10,9 @@ Leaves are recognised by the set of names in their dict:
 * ``{kernel[, bias]}``: a conv kernel (*k, in, out) becomes (out, in, *k),
   a dense kernel (in, out) becomes (out, in); where the ``spectral``
   collection holds ``u``/``v`` for the same path, sigma = u^T W_mat v is
-  folded into the weight once (``ops/spectral.py``);
+  folded into the weight once (``ops/spectral.py``), or, with
+  ``fold_spectral=False`` (the trainable modules of stage-1 training), the
+  raw weight is kept beside the ``u``/``v`` buffers;
 * ``{scale, bias}``: an affine GroupNorm -> ``weight``/``bias``;
 * ``{w, b}``: the flow's stacked coupling layer (n, in, out) -> ``weight``
   (n, out, in) and ``bias``;
@@ -27,8 +29,9 @@ buffers of the same names. ``actnorm_stats`` (``loc_init``, ``scale_init``,
 initialisation; inference reads the ``loc``/``scale`` params, so it is
 dropped.
 
-``to_variables`` goes the other way for the backbones, the in-norm embedder
-and the flow, so that the port writes checkpoints the JAX package reads.
+``to_variables`` goes the other way for the backbones, the in-norm embedder,
+the flow and the trainable stage-1 networks, so that the port writes
+checkpoints the JAX package reads.
 """
 
 from __future__ import annotations
@@ -60,15 +63,18 @@ def _key(path: tuple, name: str) -> str:
     return ".".join(path + (name,))
 
 
-def _walk(tree: dict, spectral_tree: dict, path: tuple, out: dict) -> None:
+def _walk(tree: dict, spectral_tree: dict, path: tuple, out: dict, fold: bool) -> None:
     names = set(tree)
     if "kernel" in names:
         if not names <= {"kernel", "bias"}:
             raise ValueError(f"{'/'.join(path)}: unexpected leaves {sorted(names)}")
         w = torch_weight(tree["kernel"])
         sn = spectral_tree if isinstance(spectral_tree, dict) else {}
-        if "u" in sn:
+        if "u" in sn and fold:
             w = spectral.fold(w, _tensor(sn["u"]), _tensor(sn["v"]))
+        elif "u" in sn:
+            out[_key(path, "u")] = _tensor(sn["u"])
+            out[_key(path, "v")] = _tensor(sn["v"])
         out[_key(path, "weight")] = w
         if "bias" in tree:
             out[_key(path, "bias")] = _tensor(tree["bias"])
@@ -91,7 +97,7 @@ def _walk(tree: dict, spectral_tree: dict, path: tuple, out: dict) -> None:
             continue
         if not isinstance(sub, dict):
             raise ValueError(f"{'/'.join(path + (name,))}: unexpected leaf")
-        _walk(sub, (spectral_tree or {}).get(name, {}), path + (name,), out)
+        _walk(sub, (spectral_tree or {}).get(name, {}), path + (name,), out, fold)
 
 
 def _walk_leaves(tree: dict, path: tuple, out: dict, convert) -> None:
@@ -106,34 +112,41 @@ def _int64(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a).astype(np.int64))
 
 
-def to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
-    """Variables tree of one JAX module -> state_dict of its port."""
+def to_state_dict(variables: dict, fold_spectral: bool = True) -> dict[str, torch.Tensor]:
+    """Variables tree of one JAX module -> state_dict of its port: a serving
+    module's (spectral norm folded), or with ``fold_spectral=False`` a
+    trainable module's (raw weights and the ``u``/``v`` buffers)."""
     unknown = set(variables) - _COLLECTIONS
     if unknown:
         raise ValueError(f"collections the port cannot load yet: {sorted(unknown)}")
     out: dict[str, torch.Tensor] = {}
-    _walk(variables.get("params", {}), variables.get("spectral", {}), (), out)
+    _walk(variables.get("params", {}), variables.get("spectral", {}), (), out, fold_spectral)
     _walk_leaves(variables.get("buffers", {}), (), out, _int64)
     _walk_leaves(variables.get("batch_stats", {}), (), out, _tensor)
     return out
 
 
+_COLLECTION_OF = {"fwd": "buffers", "inv": "buffers", "u": "spectral", "v": "spectral",
+                  "mean": "batch_stats", "var": "batch_stats"}
+
+
 def to_variables(state_dict: dict[str, torch.Tensor]) -> dict:
     """state_dict -> the JAX variables tree that ``to_state_dict`` maps back
-    onto it, for the modules whose leaves it knows: convolutions without
-    spectral norm and frozen-BN leaves (the metric backbones, the in-norm
-    embedder), and the flow's stacked coupling layers (``weight`` (n, out,
-    in) -> ``w`` (n, in, out), ``bias`` -> ``b``), ActNorm ``loc``/``scale``
-    and shuffle permutations (``fwd``/``inv``, to the ``buffers``
-    collection as int32). Every array is a copy, so a tree handed to a
-    background writer does not change with the module."""
-    params: dict = {}
-    buffers: dict = {}
+    onto it: conv weights (out, in, *k) -> ``kernel`` (*k, in, out), dense
+    weights (out, in) -> (in, out), a norm's per-channel ``weight`` ->
+    ``scale``, ``bias``, ActNorm ``loc``/``scale`` and frozen-BN leaves to
+    ``params``; the flow's stacked coupling layers (``weight`` (n, out, in)
+    -> ``w`` (n, in, out), ``bias`` -> ``b``); shuffle permutations
+    (``fwd``/``inv``) to ``buffers`` as int32; a trainable spectral layer's
+    ``u``/``v`` to ``spectral``; a BatchNorm's ``mean``/``var`` to
+    ``batch_stats``. Every array is a copy, so a tree handed to a background
+    writer does not change with the module."""
+    trees: dict = {"params": {}}
     for key, t in state_dict.items():
         *path, name = key.split(".")
         t = t.detach().cpu()
         a = (t.float() if t.is_floating_point() else t).numpy().copy()
-        node = buffers if name in ("fwd", "inv") else params
+        node = trees.setdefault(_COLLECTION_OF.get(name, "params"), {})
         for p in path:
             node = node.setdefault(p, {})
         if name in ("fwd", "inv"):
@@ -141,13 +154,15 @@ def to_variables(state_dict: dict[str, torch.Tensor]) -> dict:
         elif "coupling" in path and name in ("weight", "bias"):
             node["w" if name == "weight" else "b"] = (
                 np.ascontiguousarray(np.swapaxes(a, -1, -2)) if name == "weight" else a)
-        elif name == "weight" and a.ndim >= 3:  # (out, in, *k) -> (*k, in, out)
+        elif name == "weight" and a.ndim >= 2:  # (out, in, *k) -> (*k, in, out)
             node["kernel"] = np.ascontiguousarray(np.transpose(a, tuple(range(2, a.ndim)) + (1, 0)))
-        elif name in ("bias", "loc", "scale") + _FROZEN_BN:
+        elif name == "weight" and a.ndim == 1:
+            node["scale"] = a
+        elif name in ("bias", "loc", "scale", "u", "v", "mean", "var") + _FROZEN_BN:
             node[name] = a
         else:
             raise ValueError(f"{key}: a leaf the bridge cannot write back")
-    return {"params": params, **({"buffers": buffers} if buffers else {})}
+    return trees
 
 
 def load_checkpoint(module: torch.nn.Module, path: str) -> torch.nn.Module:
