@@ -80,6 +80,34 @@ Phases (any failure raises and the script exits non-zero):
    same at the config's lr reported). Then the step's time at bs 10 (fp32 and bf16)
    and its peak memory, its stages each alone, the validation pass and the
    posterior FVD.
+   4f. Stage-2 AE training at the full BAIR preset: the trainer's ``train``
+   (``configs/stage2_AE/bair_config.yaml``: the ResNet-50 'in' encoder, the
+   BigGAN decoder at chn 96, z 64, the patch discriminator, bs 30, w_kl
+   1e-5, lr 2e-4) over synthetic train and eval splits of 60 clips in
+   FrameStores, random full-size networks, 2 epochs of 2 steps (pretrain
+   cut to 1: epoch 0 gated, epoch 1 open) with the discriminator's ActNorm
+   init, validation and ``Encoder_stage2``, in its own counted window (no
+   flow chain on this path). Checks: losses, ``Logvar`` and ``Disc_weight``
+   finite; one whole step on the card against the CPU at bs 2, with the
+   discriminator's spectral vectors converged before its ActNorm init, in
+   fp64 the losses (``F64_LOSS_TOL``), and ``Disc_weight`` (a ratio of
+   gradient norms) and both optimizers' gradients (``F64_GRAD_TOL``), fp32
+   and the run's own collapsed-discriminator state reported; a gated step leaves
+   the discriminator bitwise with its Adam count 0 while its ``u`` moves, an
+   open one with d_loss > 0 moves it; the ActNorm init normalises
+   (``ACTNORM_TOL``); each BatchNorm's running statistics move once in a
+   train step and not in an eval step; the written ``Encoder_stage2`` in the
+   serving ``ResnetEncoder`` and in a stage-2 ``build_models`` embedder
+   (chained to 4e's run) embeds as the training module did (``SERVE_TOL``);
+   10 steps at ``AE_LEARN_LR_SCALE`` of the lr lower one batch's
+   ``Loss_recon``. Then the step's time at bs 30 and its peak memory, the
+   validation pass, and one step of the landscape AE (128 px, 'bn' encoder,
+   z 128, the attention) timed and checked finite.
+   4g. Endpoint control: ``visualize_endpoint``'s body on a synthetic BAIR
+   endpoint test split (12 clips with end-effector positions) and a random
+   full-size control model, in its own counted window (4 reverse chains).
+   Checks: the videos finite in [-1, 1]; the chain's z against its plain
+   version.
 5. Timings: each kernel's median ms beside its plain version and its bound;
    the reverse chain at B = 1, 6 and 16; where a chain's time goes, from the
    timeline build (per layer and pass, and the kernel's own span), and a
@@ -92,14 +120,14 @@ Phases (any failure raises and the script exits non-zero):
    power limit.
 6. ``torch.profiler`` traces of two bf16 ``Model.forward`` calls, of two
    bf16 landscape ``Model.transfer`` calls, of two synthesis-eval steps
-   (sample a batch, all four backbones), of two stage-2 training steps and
-   of two stage-1 training steps (device time by stage span): the top
-   device kernels, the flow
+   (sample a batch, all four backbones), of two stage-2 training steps, of
+   two stage-1 training steps and of two stage-2 AE training steps (device
+   time by stage span): the top device kernels, the flow
    chain's share, the device's idle share, and the host and device time
    before the first flow chain (the embedder; in transfer, the encoder and
    the query's embedding). The traces are written to ``smoke_out/`` (listed
    in ``.gitignore``).
-7. A ``{"kernels": [...]}`` line (launches summed over the six counted
+7. A ``{"kernels": [...]}`` line (launches summed over the eight counted
    windows), then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is visible, and when the
@@ -222,6 +250,39 @@ ACTNORM_TOL = 1e-3
 SERVE_TOL = 1e-5
 S1_SPANS = ("stage1/vae_forward", "stage1/disc_t", "stage1/disc_s", "stage1/spectral",
             "stage1/vae_loss", "stage1/vae_backward", "stage1/optimizer")
+# phase 4f, stage-2 AE training at the BAIR preset: configs/stage2_AE/bair_config.yaml
+# (copied here), its 30 loader workers cut to the machine's 8, its pretrain 20 cut to 1
+# (epoch 0 gated, epoch 1 open), 2 epochs; synthetic train and eval splits of 60
+# clips (2 steps of 30 an epoch, 2 eval batches). chn is the AE's default, 96.
+AE_CLIPS, AE_EPOCHS = 60, 2
+AE_MODELS = dict(
+    AE=dict(deterministic=False, in_size=64, norm="in", encoder_type="resnet50",
+            use_actnorm_in_dec=False, z_dim=64, pre_process=False, pretrained=False),
+    Discriminator_Patch=dict(in_channels=3, ndf=64, n_layers=3, use_actnorm=True,
+                             spectral_norm=True))
+AE_TRAINING = dict(w_kl=1.0e-05, n_epochs=AE_EPOCHS, lr=0.0002, bs=30, weight_decay=0,
+                   workers=TRAIN_WORKERS, pretrain=1, steps_per_dispatch=8, savename="chip_smoke")
+AE_DATA = dict(sequence_length=1, dataset="BAIR", img_size=64, reverse=False, aug=True,
+               framestore="off", Augmentation=dict(brightness=0.2, contrast=0.2, saturation=0.2,
+                                                   hue=0.1, prob_hflip=0.5))
+# the landscape AE (configs/stage2_AE/landscape_config.yaml: its AE, Training and Data
+# sections copied here, with the BAIR phase's cuts): 128 px, where the generator's
+# SelfAttention runs, and the encoder's BatchNorm on batch statistics
+AE_LANDSCAPE = dict(AE_MODELS["AE"], in_size=128, norm="bn", z_dim=128)
+AE_LANDSCAPE_TRAINING = dict(AE_TRAINING, w_kl=1.0e-04)
+AE_LANDSCAPE_DATA = dict(sequence_length=1, dataset="landscape", img_size=128, iter_train=20,
+                         iter_eval=2, iter_test=6, aug=True, framestore="off",
+                         Augmentation=dict(brightness=0.3, contrast=0.3, saturation=0.3,
+                                           hue=0.1, prob_hflip=0.5))
+AE_CHECK_BATCH = 2  # images of the card-against-CPU step
+AE_SN_ITERS = 20  # power iterations of the held card-against-CPU state (see phase_train_ae)
+AE_LEARN_LR_SCALE = 0.1  # the learning check's lr, a fraction of the config's (as in 4e)
+AE_SPANS = tuple(f"stage2_ae/{s}" for s in (
+    "forward", "colorize_grads", "backward", "gen_optimizer", "recompute", "disc",
+    "disc_optimizer", "spectral"))
+# the endpoint phase: visualize_endpoint's body on a synthetic BAIR endpoint test
+# split of 12 clips, 2 realisations in batches of 6 (4 reverse chains)
+ENDPOINT_CLIPS, ENDPOINT_REALIZ = 12, 2
 
 
 def log(*a):
@@ -1505,6 +1566,445 @@ def phase_train_stage1(card: str, tmp: Path, weights_root: str):
     return launches, device_launches, traced_step
 
 
+def ae_config(tmp: Path, data_path: str, ae: dict = AE_MODELS["AE"],
+              training: dict = AE_TRAINING, data: dict = AE_DATA):
+    from image2video_synthesis_using_cinns_tpu_torch.config import Config
+
+    return Config(dict(AE_MODELS, AE=dict(ae),
+                       Training=dict(training, save_path=str(tmp / "runs_ae")),
+                       Data=dict(data, data_path=data_path), Logging={"mode": "disabled"}))
+
+
+def ae_step(models, tr, img, epoch: int, device, dtype):
+    """One AE step (both updates, the recompute, the refresh) on copies of
+    ``models`` in ``dtype`` on ``device`` with fresh optimizers: the metrics
+    and each optimizer's gradients as it applied them (host copies)."""
+    import copy
+
+    from image2video_synthesis_using_cinns_tpu_torch.train import stage2_ae
+
+    m = copy.deepcopy(models)
+    for module in (m.network, m.disc, m.lpips):
+        module.to(device, dtype)
+    m.logvar.data = m.logvar.data.to(device, dtype)
+    optimizers = stage2_ae.make_optimizers(m, tr["lr"], tr["weight_decay"])
+    grads = {}
+    for name, o in zip(("GEN", "DISC"), optimizers):
+        def step(o=o, name=name, apply=o.step):
+            grads[name] = [p.grad.detach().cpu() for p in o.param_groups[0]["params"]]
+            apply()
+        o.step = step
+    metrics, _ = stage2_ae.AEStep(m, optimizers, tr)(img.to(device, dtype), epoch)
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def phase_train_ae(card: str, tmp: Path):
+    """Stage-2 AE training at the full BAIR preset: the trainer's ``train``
+    over synthetic splits packed into FrameStores, random full-size
+    networks, in its own counted window (no flow chain on this path); then
+    its checks, its timings, the landscape step, and the step it traces."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.config import Config
+    from image2video_synthesis_using_cinns_tpu_torch.data import get_loader
+    from image2video_synthesis_using_cinns_tpu_torch.data.augment import build_augment
+    from image2video_synthesis_using_cinns_tpu_torch.data.framestore import FrameStore
+    from image2video_synthesis_using_cinns_tpu_torch.data.loader import Loader
+    from image2video_synthesis_using_cinns_tpu_torch.data.registry import augment_params
+    from image2video_synthesis_using_cinns_tpu_torch.models import layers
+    from image2video_synthesis_using_cinns_tpu_torch.models.stage2.resnet2d import ResnetEncoder
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
+    from image2video_synthesis_using_cinns_tpu_torch.testing import configs
+    from image2video_synthesis_using_cinns_tpu_torch.train import stage2, stage2_ae
+    from image2video_synthesis_using_cinns_tpu_torch.utils import convert
+
+    t0 = time.perf_counter()
+    root = tmp / "bair_train_ae"
+    bair_split(root, AE_CLIPS, "train", first_traj=80)
+    bair_split(root, AE_CLIPS, "eval", first_traj=90)
+    opt = ae_config(tmp, str(root) + "/")
+    tr = opt.Training
+    loaders = {}
+    for mode, seed, drop_last in (("train", 42, True), ("eval", 43, False)):
+        ds = get_loader("BAIR")(opt, mode)
+        store = FrameStore.build(ds, str(tmp / f"ae_{mode}.fst"), imread=seeded_imread)
+        loaders[mode] = Loader(ds, tr["bs"], workers=tr["workers"], drop_last=drop_last,
+                               seed=seed, framestore=store)
+    models = stage2_ae.build_models(opt, seed=0)
+    n_params = {"encoder": sum(p.numel() for p in models.network.encoder.parameters()),
+                "decoder": sum(p.numel() for p in models.network.decoder_wrap.parameters()),
+                "discriminator": sum(p.numel() for p in models.disc.parameters())}
+    log(f"  set-up {time.perf_counter() - t0:.2f} s: BAIR train and eval splits of {AE_CLIPS} "
+        f"clips packed, full-size random networks built (parameters: {n_params})")
+
+    saved = {}  # the encoder as each Encoder_stage2 write saw it
+    write_tree = stage2_ae.encoder_variables
+
+    def recording(m):
+        saved["encoder"] = copy.deepcopy(m.network.encoder)
+        return write_tree(m)
+
+    stage2_ae.encoder_variables = recording
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = stage2_ae.train(opt, models, loaders["train"], loaders["eval"], device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        stage2_ae.encoder_variables = write_tree
+    launches, device_launches = dict(fk.launches), dict(fk.device_launches)
+    log(f"  stage-2 AE training chain launches: {launches}; device kernels: {device_launches}")
+    if any(launches.values()) or any(device_launches.values()):
+        raise AssertionError("stage-2 AE training launched a flow chain; its path has none")
+    n_steps = len(loaders["train"])
+    train_m = dict(zip(stage2_ae.LOG_KEYS, out["train_loss"]))
+    eval_m = dict(zip(stage2_ae.LOG_KEYS, out["eval_loss"]))
+    log(f"  [{card}] stage2_ae.train bair bs={tr['bs']}, {AE_EPOCHS} epochs of {n_steps} steps "
+        f"(epoch 0 gated) with the ActNorm init, validation and Encoder_stage2: {wall:.3f} s; "
+        f"{out['global_step']} steps; train {train_m}, eval {eval_m}, best {out['best_val']}")
+    if out["global_step"] != AE_EPOCHS * n_steps or not all(
+            np.isfinite(v) for v in (*out["train_loss"], *out["eval_loss"])):
+        raise AssertionError(f"stage-2 AE training: a step is missing or a value is not "
+                             f"finite: {out}")
+    log("  every loss, Logvar and Disc_weight finite")
+
+    # -- the batch of the checks ----------------------------------------------------
+    size = opt.Data["img_size"]
+    params_aug, random_crop, _ = augment_params(opt, "train")
+    aug = build_augment(size, params_aug, random_crop, True)
+    aug_eval = build_augment(size, params_aug, random_crop, False)
+    draws = stage2_ae.Draws()
+    raw = torch.from_numpy(first_batch(loaders["train"])["seq_raw"]).to(DEVICE)
+    n = raw.shape[0]
+    img = aug(raw, draws=draws.augment(0, 0, 0, n, params_aug, random_crop))[:, 0]
+    img = img.permute(0, 3, 1, 2).contiguous()
+
+    # -- card against CPU: one whole step, gate open -------------------------------
+    # The run's random discriminator has collapsed: its ActNorm scales were set
+    # under the init's random spectral vectors (sigma near 0), and the first
+    # refresh shrinks its weights, so its logits hardly depend on the image.
+    # Then d_weight sits at its clamp 1e4 and multiplies a generator gradient
+    # that is nearly all cancellation: that state is reported. The held state
+    # refreshes the discriminator's vectors to convergence before its ActNorm
+    # init, as a trained checkpoint holds them.
+    b = AE_CHECK_BATCH
+    conditioned = copy.deepcopy(models)
+    for _ in range(AE_SN_ITERS):
+        layers.power_iteration_(conditioned.disc)
+    layers.init_actnorm(conditioned.disc, img)
+    runs, secs = {}, {}
+    for state, src, dtypes in (("run", models, (torch.float64,)),
+                               ("conditioned", conditioned, (torch.float64, torch.float32))):
+        for dev in ("card", "cpu"):
+            for dt in dtypes:
+                t1 = time.perf_counter()
+                runs[state, dev, dt] = ae_step(src, tr, img[:b], 1,
+                                               DEVICE if dev == "card" else "cpu", dt)
+                secs[state, dev, dt] = time.perf_counter() - t1
+    del conditioned
+
+    def versus(state, dt) -> tuple[float, float, float]:
+        """The losses over max(|loss|, 1); Disc_weight, a ratio of two
+        gradient norms, relative; each optimizer's gradients over its largest."""
+        (ma, ga), (mc, gc) = runs[state, "card", dt], runs[state, "cpu", dt]
+        if set(ga) != set(gc):
+            raise AssertionError(f"stage-2 AE: the card updated {sorted(ga)}, the CPU "
+                                 f"{sorted(gc)}")
+        m_err = max(abs(ma[k] - mc[k]) / max(abs(mc[k]), 1.0) for k in mc if k != "Disc_weight")
+        w_err = abs(ma["Disc_weight"] - mc["Disc_weight"]) / abs(mc["Disc_weight"])
+        g_err = 0.0
+        for name in gc:
+            scale = max(float(g.abs().max()) for g in gc[name])
+            g_err = max(g_err, max(float((x.double() - y.double()).abs().max())
+                                   for x, y in zip(ga[name], gc[name])) / scale)
+        return m_err, w_err, g_err
+
+    def state_of(state) -> str:
+        m, g = runs[state, "cpu", torch.float64]
+        return (f"Disc_weight {m['Disc_weight']:.6g}, L_disc {m['L_disc']:.6g}, logits real "
+                f"{m['Logits_real']:.6g} fake {m['Logits_fake']:.6g}, optimizers that stepped "
+                f"{sorted(g)}")
+
+    m64, w64, g64 = versus("conditioned", torch.float64)
+    m32, w32, g32 = versus("conditioned", torch.float32)
+    r64, rw64, rg64 = versus("run", torch.float64)
+    ok = m64 <= F64_LOSS_TOL and w64 <= F64_GRAD_TOL and g64 <= F64_GRAD_TOL
+    log(f"  card vs CPU, one whole step at bs={b}, gate open (the same batch; TF32 off; CPU "
+        f"{secs['conditioned', 'cpu', torch.float64]:.1f} s fp64, "
+        f"{secs['conditioned', 'cpu', torch.float32]:.1f} s fp32), the discriminator refreshed "
+        f"{AE_SN_ITERS} times before its ActNorm init ({state_of('conditioned')}): fp64 losses "
+        f"{m64:.3e} (bound {F64_LOSS_TOL:g}), Disc_weight {w64:.3e} and both optimizers' "
+        f"gradients {g64:.3e} (bound {F64_GRAD_TOL:g}) {'ok' if ok else 'FAIL'}; fp32 (reported) "
+        f"losses {m32:.3e}, Disc_weight {w32:.3e}, gradients {g32:.3e}. The run's own state "
+        f"({state_of('run')}), reported: fp64 losses {r64:.3e}, Disc_weight {rw64:.3e}, "
+        f"gradients {rg64:.3e}")
+    if not ok:
+        raise AssertionError("stage-2 AE training: the card's fp64 step disagrees with the CPU's")
+    del runs
+
+    # -- the gate, and the BatchNorm statistics moving once a train step -----------------
+    gm = copy.deepcopy(models)
+    gopts = stage2_ae.make_optimizers(gm, tr["lr"], tr["weight_decay"])
+    gstep = stage2_ae.AEStep(gm, gopts, tr)
+    norms = [m for m in gm.network.modules() if isinstance(m, layers.BatchNorm)]
+    moves = dict.fromkeys(norms, 0)
+
+    def count(mod, args, kwargs):
+        train = kwargs.get("train", args[1] if len(args) > 1 else False)
+        moves[mod] += int(bool(train) and mod.update_stats)
+
+    hooks = [m.register_forward_pre_hook(count, with_kwargs=True) for m in norms]
+
+    def snapshot():
+        return ([p.detach().clone() for p in gm.disc.parameters()],
+                [b.clone() for name, b in gm.disc.named_buffers() if name.endswith(".u")],
+                [torch.cat([m.mean, m.var]) for m in norms])
+
+    before = snapshot()
+    gstep(img, 0)
+    after = snapshot()
+    once = set(moves.values()) == {1}
+    stats_moved = all(not torch.equal(x, y) for x, y in zip(before[2], after[2]))
+    same = all(torch.equal(p, q) for p, q in zip(before[0], after[0]))
+    u_moved = max(float((p - q).abs().max()) for p, q in zip(before[1], after[1]))
+    ok = same and u_moved > 0 and gopts[1].count == 0 and once and stats_moved
+    log(f"  gate closed (epoch 0): discriminator parameters bitwise unchanged {same}, Adam count "
+        f"{gopts[1].count}, spectral u moved by up to {u_moved:.3e}; each of the {len(norms)} "
+        f"BatchNorms' running statistics moved, once each {once} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("stage-2 AE training: the closed gate let the discriminator change, "
+                             "or the running statistics did not move once")
+    moves.update(dict.fromkeys(norms, 0))
+    metrics, _ = gstep(img, 1, train=False)
+    evaluated = snapshot()
+    ok = (set(moves.values()) == {0} and gopts[1].count == 0
+          and all(torch.equal(x, y) for x, y in zip(after[2], evaluated[2]))
+          and all(torch.equal(p, q) for p, q in zip(after[0], evaluated[0])))
+    log(f"  eval step (epoch 1): nothing moved, no running statistics updated "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("stage-2 AE training: the eval step changed the state")
+    metrics, _ = gstep(img, 1)
+    opened = snapshot()
+    for h in hooks:
+        h.remove()
+    moved = max(float((p - q).abs().max()) for p, q in zip(evaluated[0], opened[0]))
+    d_loss = float(metrics["L_disc"])
+    ok = (moved > 0 and gopts[1].count == 1) if d_loss > 0 else (moved == 0 and gopts[1].count == 0)
+    log(f"  gate open (epoch 1): L_disc {d_loss:.6g}, discriminator parameters moved by up to "
+        f"{moved:.3e}, Adam count {gopts[1].count}; running statistics moved once each "
+        f"{set(moves.values()) == {1}} {'ok' if ok else 'FAIL'}")
+    if not ok or set(moves.values()) != {1}:
+        raise AssertionError("stage-2 AE training: the open gate did not update as d_loss says")
+    del gm, gopts, gstep
+
+    # -- the ActNorm init on the first augmented batch ----------------------------------
+    dcopy = copy.deepcopy(models.disc)
+    outputs = {}
+    hooks = [m.register_forward_hook(lambda mod, i, o, name=name: outputs.__setitem__(name, o))
+             for name, m in dcopy.named_modules() if isinstance(m, layers.ActNormImage)]
+    layers.init_actnorm(dcopy, img)
+    for h in hooks:
+        h.remove()
+    worst = max(max(float(o.mean((0, 2, 3)).abs().max()),
+                    float((o.std((0, 2, 3)) - 1).abs().max())) for o in outputs.values())
+    log(f"  ActNorm init on {n} images: each of the {len(outputs)} ActNorms' output per channel, "
+        f"worst |mean| or |std - 1| {worst:.3e} (bound {ACTNORM_TOL:g}) "
+        f"{'ok' if worst <= ACTNORM_TOL else 'FAIL'}")
+    if not worst <= ACTNORM_TOL or len(outputs) != 3:
+        raise AssertionError("stage-2 AE training: the ActNorm init does not normalise")
+    del dcopy, outputs
+
+    # -- the written Encoder_stage2 in serving -------------------------------------------
+    run = Path(out["save_path"])
+    ae = opt.AE
+    x = aug_eval(torch.from_numpy(first_batch(loaders["eval"])["seq_raw"]).to(DEVICE))[:, 0]
+    x = x.permute(0, 3, 1, 2).contiguous()
+    trained = saved["encoder"].to(DEVICE)
+    serving = convert.load_checkpoint(ResnetEncoder(ae["z_dim"], ae["encoder_type"], ae["norm"]),
+                                      str(run / "Encoder_stage2.msgpack")).to(DEVICE).eval()
+    with torch.no_grad():
+        want = trained(x)
+        check_rel("train ae: Encoder_stage2 in the serving ResnetEncoder embeds as the training "
+                  "module did", serving(x), want, SERVE_TOL)
+    s1_run = next((tmp / "runs_s1").glob("Stage1_*"))  # phase 4e's run: the stage-1 model
+    opt2 = configs(PRESET)[0]
+    opt2.Conditioning_Model = Config(dict(opt2.Conditioning_Model, checkpoint_name="Encoder_stage2",
+                                          model_path=str(run.parent), model_name=run.name))
+    opt2.First_stage_model = Config(dict(checkpoint_encoder="best_PFVD_ENC",
+                                         checkpoint_decoder="best_PFVD_GEN",
+                                         model_path=str(s1_run.parent), model_name=s1_run.name))
+    network = stage2.build_models(opt2).network.to(DEVICE).eval()
+    with torch.no_grad():
+        check_rel("train ae: Encoder_stage2 in a stage-2 build_models embedder (chained to 4e's "
+                  "stage-1 run) embeds as the training module did", network.embed([x]),
+                  trained.encode(x).mode(), SERVE_TOL)
+    del trained, serving, network
+
+    # -- learning: 10 steps with the gate closed on one batch ------------------------------
+    def learn(lr: float) -> list[float]:
+        lm = copy.deepcopy(models)
+        lstep = stage2_ae.AEStep(lm, stage2_ae.make_optimizers(lm, lr, tr["weight_decay"]), tr)
+        with torch.no_grad():
+            rec = [float(lstep.recon_losses(img, True)["rec"].mean())]
+        for _ in range(10):
+            rec.append(float(lstep(img, 0)[0]["Loss_recon"]))
+        return rec
+
+    lr_learn = tr["lr"] * AE_LEARN_LR_SCALE
+    for lr in (tr["lr"], lr_learn):
+        rec = learn(lr)
+        ok = rec[-1] < rec[0]
+        verdict = ("ok" if ok else "FAIL") if lr == lr_learn else "reported"
+        log(f"  10 steps with the gate closed at lr {lr:g} on one batch of {n} (the run's "
+            f"networks): its Loss_recon {rec[0]:.6g} -> {rec[-1]:.6g} {verdict}; after each step "
+            + " ".join(f"{v:.5f}" for v in rec[1:]))
+        if lr == lr_learn and not ok:
+            raise AssertionError("stage-2 AE training: 10 steps on one batch did not lower its "
+                                 "Loss_recon")
+
+    # -- timings -----------------------------------------------------------------------
+    tm = copy.deepcopy(models)
+    topts = stage2_ae.make_optimizers(tm, tr["lr"], tr["weight_decay"])
+    tstep = stage2_ae.AEStep(tm, topts, tr)
+
+    def timed_step(step, image, reps: int = 7, warm: int = 2) -> float:
+        for _ in range(warm):
+            step(image, 1)
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(reps):
+            t1 = time.perf_counter()
+            step(image, 1)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t1)
+        return statistics.median(lat) * 1e3
+
+    def peak_of(step, image) -> tuple[float, float]:
+        gc.collect()
+        resident = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        step(image, 1)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 2**30, resident
+
+    step_ms = timed_step(tstep, img)
+    peak, resident = peak_of(tstep, img)
+    log(f"  [{card}] stage-2 AE training step bs={n} 64x64 fp32, gate open (forward, both "
+        f"colorize gradients, backward, generator Adam, recompute, discriminator and its Adam, "
+        f"spectral refresh): {step_ms:.3f} ms, {n / step_ms * 1e3:.1f} images/s (median of 7 "
+        f"after 2 warm-ups); peak memory {peak:.2f} GiB, of which {peak - resident:.2f} GiB above "
+        f"the {resident:.2f} GiB allocated before the step")
+    t0 = time.perf_counter()
+    vals = []
+    for batch in loaders["eval"].epoch_iter(0):
+        e = aug_eval(torch.from_numpy(batch["seq_raw"]).to(DEVICE))[:, 0].permute(0, 3, 1, 2)
+        vals.append(float(tstep(e.contiguous(), 0, train=False)[0]["Loss_recon"]))
+    torch.cuda.synchronize()
+    log(f"  [{card}] validation pass ({len(vals)} batches of {tr['bs']}: the eval step, both "
+        f"colorize gradients included; Loss_recon {np.mean(vals):.6g}) "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    for loader in loaders.values():
+        loader.framestore.close()
+
+    # -- the landscape AE: 128 px, 'bn' encoder, the attention ----------------------------
+    lopt = ae_config(tmp, "", AE_LANDSCAPE, AE_LANDSCAPE_TRAINING, AE_LANDSCAPE_DATA)
+    ltr = lopt.Training
+    lmodels = stage2_ae.build_models(lopt, seed=3).to(DEVICE)
+    lstep = stage2_ae.AEStep(lmodels, stage2_ae.make_optimizers(lmodels, ltr["lr"],
+                                                                ltr["weight_decay"]), ltr)
+    limg = torch.rand((n, 3, 128, 128), generator=torch.Generator().manual_seed(9)) * 2 - 1
+    limg = limg.to(DEVICE)
+    layers.init_actnorm(lmodels.disc, limg)
+    lmetrics, lrecon = lstep(limg, 1)
+    finite = all(np.isfinite(float(v)) for v in lmetrics.values()) and bool(
+        torch.isfinite(lrecon).all())
+    lms = timed_step(lstep, limg, reps=3, warm=1)
+    lpeak, lresident = peak_of(lstep, limg)
+    log(f"  [{card}] landscape AE step bs={n} 128x128 fp32 (landscape_config.yaml's AE and "
+        f"Training, w_kl {ltr['w_kl']:g}: ResNet-50 'bn' encoder on batch "
+        f"statistics, z 128, 5 GBlocks and the attention, "
+        f"{sum(p.numel() for p in lmodels.network.parameters())} parameters): {lms:.3f} ms "
+        f"(median of 3 after 1 warm-up), peak memory {lpeak:.2f} GiB ({lpeak - lresident:.2f} "
+        f"GiB above the allocated before); metrics finite {finite} "
+        f"{'ok' if finite else 'FAIL'}: " + ", ".join(f"{k} {float(v):.5g}"
+                                                     for k, v in lmetrics.items()))
+    if not finite:
+        raise AssertionError("stage-2 AE training: the landscape step is not finite")
+    del lmodels, lstep
+
+    trace_step = stage2_ae.AEStep(tm, topts, tr)
+
+    def traced_step():  # phase_trace runs its calls under no_grad; the step enables autograd
+        trace_step(img, 1)
+
+    return launches, device_launches, traced_step
+
+
+def phase_endpoint(card: str, tmp: Path):
+    """``visualize_endpoint``'s body at the full BAIR preset with a random
+    control model on a synthetic endpoint test split, in its own counted
+    window; then its checks."""
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.cli import visualize_endpoint
+    from image2video_synthesis_using_cinns_tpu_torch.data import get_eval_loader
+    from image2video_synthesis_using_cinns_tpu_torch.data.augment import build_augment
+    from image2video_synthesis_using_cinns_tpu_torch.data.framestore import FrameStore
+    from image2video_synthesis_using_cinns_tpu_torch.data.loader import Loader
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
+    from image2video_synthesis_using_cinns_tpu_torch.testing import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(PRESET, vid_length=EVAL_SEQ, seed=2, control=True, device=DEVICE)
+    root = tmp / "bair_endpoint"
+    bair_split(root, ENDPOINT_CLIPS, "test", first_traj=100)
+    rng = np.random.default_rng(17)
+    for clip in sorted((root / "test").glob("traj_*/*")):  # the end effector's track
+        start = rng.uniform([0.4264, -0.3, 0.19], [0.4285, 0.2, 0.3])
+        track = start + np.linspace(0, 1, BAIR_FRAMES)[:, None] * rng.uniform(-0.1, 0.1, 3)
+        np.savetxt(clip / "endeffector_positions.csv", track, delimiter=",")
+    dataset = get_eval_loader("bair", EVAL_SEQ + 1, str(root) + "/", model.config, control=True)
+    store = FrameStore.build(dataset, str(tmp / "endpoint.fst"), imread=seeded_imread)
+    loader = Loader(dataset, BATCH, shuffle=False, drop_last=False, workers=8, framestore=store)
+    log(f"  set-up {time.perf_counter() - t0:.2f} s: a random full-size control model, a BAIR "
+        f"endpoint test split of {ENDPOINT_CLIPS} clips with end-effector tracks packed")
+
+    n_batches = -(-ENDPOINT_CLIPS // BATCH)
+    videos, wall, launches, device_launches = eval_window(
+        "endpoint", lambda: visualize_endpoint.generate(model, loader, ENDPOINT_REALIZ,
+                                                        ENDPOINT_CLIPS),
+        ENDPOINT_REALIZ * n_batches)
+    shape = (ENDPOINT_CLIPS, ENDPOINT_REALIZ, EVAL_SEQ, 3, BAIR_PX, BAIR_PX)
+    ok = (tuple(videos.shape) == shape and bool(torch.isfinite(videos).all())
+          and float(videos.abs().max()) <= 1.0)
+    log(f"  [{card}] visualize_endpoint body: {ENDPOINT_CLIPS} clips x {ENDPOINT_REALIZ} "
+        f"realisations of {EVAL_SEQ} frames in {wall:.3f} s; videos {tuple(videos.shape)} finite "
+        f"in [-1, 1] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("endpoint: a video is not finite in [-1, 1]")
+
+    batch = first_batch(loader)
+    seq = build_augment(BAIR_PX, None, False, False)(torch.from_numpy(batch["seq_raw"]).to(DEVICE))
+    x0 = seq[:, 0].permute(0, 3, 1, 2).contiguous()
+    cond = torch.from_numpy(batch["cond"]).to(DEVICE)
+    residual = torch.randn((x0.shape[0], model.z_dim), generator=torch.Generator().manual_seed(4))
+    residual = residual.to(DEVICE)
+    with torch.no_grad():
+        _, z = model.sample(x0, cond=cond, residual=residual)
+        z_ref = fk.flow_reverse_fused_ref(model.flow.flow.packed, residual,
+                                          model.flow.embed([x0, cond]))
+    check("endpoint z_vs_plain", z, z_ref, TOL["bf16"])
+    store.close()
+    return launches, device_launches
+
+
 def _timeline_library(lib):
     from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
 
@@ -1877,7 +2377,15 @@ def main() -> int:
         t0 = time.perf_counter()
         s1_launches, s1_device_launches, s1_train_step = phase_train_stage1(
             card, Path(tmp), str(Path(tmp) / "models"))
-    log(f"  phase 4e took {time.perf_counter() - t0:.2f} s")
+        log(f"  phase 4e took {time.perf_counter() - t0:.2f} s")
+        log("== 4f. stage-2 AE training (BAIR preset, random weights)")
+        t0 = time.perf_counter()
+        ae_launches, ae_device_launches, ae_train_step = phase_train_ae(card, Path(tmp))
+        log(f"  phase 4f took {time.perf_counter() - t0:.2f} s")
+        log("== 4g. endpoint control (BAIR preset, random control model)")
+        t0 = time.perf_counter()
+        ep_launches, ep_device_launches = phase_endpoint(card, Path(tmp))
+    log(f"  phase 4g took {time.perf_counter() - t0:.2f} s")
 
     log("== 5. timings")
     rows = phase_timings(card, models, x0, residual)
@@ -1899,10 +2407,12 @@ def main() -> int:
                 "no chain in a step", spans=TRAIN_SPANS)
     phase_trace(card, "stage-1 train step bs=10 fp32", s1_train_step,
                 "trace_train_stage1_step.json", "no chain in a step", spans=S1_SPANS)
+    phase_trace(card, "stage-2 AE train step bs=30 fp32", ae_train_step,
+                "trace_train_ae_step.json", "no chain in a step", spans=AE_SPANS)
 
     # each kernel at the shape its path gives it, in that path's mode (bf16
     # weights): the reverse at the BAIR sampling path's B=6, E=64, the forward
-    # at the transfer's one query, B=1, E=128; launches over all six windows;
+    # at the transfer's one query, B=1, E=128; launches over all eight windows;
     # beside them each in the training path's fp32-weight mode at B=10, E=64
     kernels = []
     for name, line, r, shape, err_key in (
@@ -1915,10 +2425,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": f"{PALLAS_KERNEL}:{line}",
             "launches": (launches[name] + t_launches[name] + e_launches[name] + tr_launches[name]
-                         + s1_launches[name]),
+                         + s1_launches[name] + ae_launches[name] + ep_launches[name]),
             "device_launches": (device_launches[name] + t_device_launches[name]
                                 + e_device_launches[name] + tr_device_launches[name]
-                                + s1_device_launches[name]),
+                                + s1_device_launches[name] + ae_device_launches[name]
+                                + ep_device_launches[name]),
             "shape": f"{shape} hidden 512 20 blocks, bf16 weights",
             "max_abs_err": errs[err_key],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

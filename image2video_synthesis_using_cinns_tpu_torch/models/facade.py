@@ -90,12 +90,16 @@ class Model:
                 decoder.load_state_dict(convert.to_state_dict(_variables(dec_ckpt)))
             if enc_ckpt is not None:
                 encoder.load_state_dict(convert.to_state_dict(_variables(enc_ckpt)))
+            emb_ckpt = ckpt_io.find(_join(ae_dir, cond_dic.get("checkpoint_name", "")))
             if flow_ckpt is not None:
                 flow_vars = _variables(flow_ckpt)
-                emb_ckpt = ckpt_io.find(_join(ae_dir, cond_dic.get("checkpoint_name", "")))
                 if emb_ckpt is not None:
                     flow_vars = convert.splice(flow_vars, "embedder", _variables(emb_ckpt))
                 flow.load_state_dict(convert.to_state_dict(flow_vars))
+            elif emb_ckpt is not None:  # a random flow under the trained embedder, as in JAX
+                emb_vars = {c: t.get("embedder", t) for c, t in _variables(emb_ckpt).items()
+                            if isinstance(t, dict)}
+                flow.embedder.load_state_dict(convert.to_state_dict(emb_vars))
 
         self._setup(config, config_stage1, ae_cfg, vid_length, transfer, seed, use_kernel,
                     compute_dtype, device, load_weights)

@@ -12,7 +12,18 @@ collection immutable, ``models/layers.py:113-124``). ``power_iteration_``
 refreshes the vectors once, with no gradient, as the JAX trainer's
 ``mutable=["spectral"]`` pass does after each update. This is not
 ``torch.nn.utils.spectral_norm``, which iterates on every training forward
-and divides by the refreshed vectors' sigma.
+and divides by the refreshed vectors' sigma. ``sn_mode="biggan"`` (the
+stage-2 AE's generator, ``models/layers.py:106-112``) iterates once from the
+stored ``u`` on every forward, with eps 1e-4, divides by that sigma and
+writes nothing back (``ops/spectral.py::biggan_sigma``); ``power_iteration_``
+skips these layers.
+
+``BatchNorm`` normalises with its running statistics unless its forward is
+called with ``train=True``: then with the batch's, taken in float32 with the
+biased variance, and the running statistics move (momentum 0.1, the
+unbiased variance) only inside ``updating_batch_stats``, the port of the JAX
+trainers' pass with ``batch_stats`` mutable. ``nn.BatchNorm2d`` in train
+mode would move them on every forward.
 
 Weights use torch's layout: a conv weight is (out, in, *k), a dense weight
 is (out, in). Random initialisation follows torch's defaults (uniform in
@@ -23,8 +34,9 @@ discriminators' inits (``models/layers.py:41-68``).
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import torch
 import torch.nn as nn
@@ -50,12 +62,18 @@ def normal_002_(weight: torch.Tensor) -> torch.Tensor:
         return weight.normal_(0.0, 0.02)
 
 
+BIGGAN_SN_EPS = 1e-4
+
+
 class _Spectral(nn.Module):
     """The trainable spectral norm of ``SNConv``/``SNDense`` (see the module
     docstring); ``spectral=False`` leaves ``weight`` as it is."""
 
-    def _init_spectral(self, spectral: bool) -> None:
+    def _init_spectral(self, spectral: bool, sn_mode: str) -> None:
+        if sn_mode not in ("torch", "biggan"):
+            raise ValueError(f"unknown spectral-norm mode {sn_mode!r}")
         self.spectral = spectral
+        self.sn_mode = sn_mode
         if spectral:
             n_out, n_in = sn.kernel_to_matrix(self.weight).shape
             self.register_buffer("u", F.normalize(torch.randn(n_out), dim=0, eps=1e-12))
@@ -64,6 +82,8 @@ class _Spectral(nn.Module):
     def effective_weight(self) -> torch.Tensor:
         if not self.spectral:
             return self.weight
+        if self.sn_mode == "biggan":
+            return self.weight / sn.biggan_sigma(self.weight, self.u, BIGGAN_SN_EPS)
         return self.weight / sn.sigma(self.weight, self.u, self.v)
 
     @torch.no_grad()
@@ -81,7 +101,7 @@ class SNConv(_Spectral):
 
     def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
                  stride: int | Sequence[int] = 1, padding: int | Sequence[int] = 0,
-                 bias: bool = True, spectral: bool = False):
+                 bias: bool = True, spectral: bool = False, sn_mode: str = "torch"):
         super().__init__()
         self.kernel_size = tuple(kernel_size)
         if len(self.kernel_size) not in (2, 3):
@@ -96,7 +116,7 @@ class SNConv(_Spectral):
             _uniform_(self.bias, fan_in)
         else:
             self.register_parameter("bias", None)
-        self._init_spectral(spectral)
+        self._init_spectral(spectral, sn_mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = F.conv2d if len(self.kernel_size) == 2 else F.conv3d
@@ -107,7 +127,7 @@ class SNDense(_Spectral):
     """Linear layer with an (out, in) weight, spectral as ``SNConv``."""
 
     def __init__(self, in_features: int, features: int, bias: bool = True,
-                 spectral: bool = False):
+                 spectral: bool = False, sn_mode: str = "torch"):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, in_features))
         _uniform_(self.weight, in_features)
@@ -116,7 +136,7 @@ class SNDense(_Spectral):
             _uniform_(self.bias, in_features)
         else:
             self.register_parameter("bias", None)
-        self._init_spectral(spectral)
+        self._init_spectral(spectral, sn_mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.effective_weight(), self.bias)
@@ -125,9 +145,10 @@ class SNDense(_Spectral):
 def power_iteration_(module: nn.Module) -> None:
     """Refresh the stored vectors of every spectral layer in ``module``: the
     port of the JAX trainer's ``mutable=["spectral"]`` pass, whose output is
-    discarded and whose new (u, v) depend only on W and the old u."""
+    discarded and whose new (u, v) depend only on W and the old u. BigGAN
+    layers keep theirs."""
     for m in module.modules():
-        if isinstance(m, _Spectral) and m.spectral:
+        if isinstance(m, _Spectral) and m.spectral and m.sn_mode == "torch":
             m.power_iteration_()
 
 
@@ -171,23 +192,60 @@ def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm in eval mode: ``(x - mean) * rsqrt(var + eps) * weight + bias``
-    from the running statistics (the JAX layer's ``batch_stats`` collection,
-    carried to the ``mean``/``var`` buffers by the weight bridge). Computed in
-    float32 (float64 input stays float64) and cast back to the input's dtype."""
+    """BatchNorm: ``(x - mean) * rsqrt(var + eps) * weight + bias``, the
+    affine step left out with ``affine=False``. By default from the running
+    statistics (the JAX layer's ``batch_stats`` collection, carried to the
+    ``mean``/``var`` buffers by the weight bridge); with ``train=True`` from
+    the batch's (see the module docstring). Computed in float32 (float64
+    input stays float64) and cast back to the input's dtype."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    momentum = 0.1  # torch's convention: new = (1 - m) * old + m * batch
+
+    def __init__(self, num_features: int, eps: float = 1e-5, affine: bool = True):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.bias = nn.Parameter(torch.zeros(num_features))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
+        self.update_stats = False
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x32 = x.to(_stats_dtype(x))
-        y = (x32 - _per_channel(self.mean, x)) * _per_channel(torch.rsqrt(self.var + self.eps), x)
+        if train:
+            dims = [0] + list(range(2, x.ndim))
+            var, mean = torch.var_mean(x32, dim=dims, unbiased=False)
+            if self.update_stats:
+                n = x.numel() // x.shape[1]
+                m = self.momentum
+                with torch.no_grad():
+                    self.mean.copy_((1 - m) * self.mean + m * mean)
+                    self.var.copy_((1 - m) * self.var + m * (var * n / max(n - 1, 1)))
+            y = (x32 - _per_channel(mean, x)) * _per_channel(torch.rsqrt(var + self.eps), x)
+        else:
+            y = (x32 - _per_channel(self.mean, x)) * _per_channel(
+                torch.rsqrt(self.var + self.eps), x)
+        if self.weight is None:
+            return y.to(x.dtype)
         return (y * _per_channel(self.weight, x) + _per_channel(self.bias, x)).to(x.dtype)
+
+
+@contextlib.contextmanager
+def updating_batch_stats(module: nn.Module) -> Iterator[None]:
+    """Within: every ``BatchNorm`` of ``module`` called with ``train=True``
+    moves its running statistics once per call."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.update_stats = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = False
 
 
 class ActNormImage(nn.Module):

@@ -3,11 +3,16 @@
 A torchvision-style resnet18/34/50/101 trunk whose norm is InstanceNorm
 ('in'), BatchNorm from running statistics ('bn') or ActNorm ('an'), as the
 config says, and a 1x1 conv head producing 2 * z_dim posterior parameters;
-``encode`` wraps them in a ``DiagonalGaussianDistribution`` (sampling uses its
-mode, so the config's ``deterministic`` flag does not matter here). Inputs are
-(B, 3, H, W) in [-1, 1], fed to the trunk as they are. Each norm keeps the JAX
-module's name (``bn1``, ``downsample_norm``, ...) and holds its layer as ``bn``
-or ``an``, so the weight bridge maps paths to keys one to one.
+``encode`` wraps them in a ``DiagonalGaussianDistribution`` (the serving paths
+use its mode; the AE trainer also its KL, which ``deterministic`` sets to 0).
+Inputs are (B, 3, H, W) in [-1, 1], fed to the trunk as they are. Each norm
+keeps the JAX module's name (``bn1``, ``downsample_norm``, ...) and holds its
+layer as ``bn`` or ``an``, so the weight bridge maps paths to keys one to one.
+
+``train=True`` (the AE trainer's forward) normalises the ``bn`` layers with
+the batch's statistics (``layers.BatchNorm``); InstanceNorm and ActNorm
+compute the same in both modes. The default, ``train=False``, is the serving
+embedder's forward.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ TV_LAYERS = {
 
 
 class _Norm2D(nn.Module):
-    """InstanceNorm without affine ('in'), eval-mode BatchNorm ('bn') or ActNorm ('an')."""
+    """InstanceNorm without affine ('in'), BatchNorm ('bn') or ActNorm ('an')."""
 
     def __init__(self, kind: str, features: int):
         super().__init__()
@@ -41,10 +46,10 @@ class _Norm2D(nn.Module):
         elif kind == "an":
             self.an = ActNormImage(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.kind == "in":
             return instance_norm(x)
-        return self.bn(x) if self.kind == "bn" else self.an(x)
+        return self.bn(x, train) if self.kind == "bn" else self.an(x)
 
 
 class _BasicBlock2D(nn.Module):
@@ -61,11 +66,11 @@ class _BasicBlock2D(nn.Module):
             self.downsample_conv = SNConv(inplanes, planes, (1, 1), stride, bias=False)
             self.downsample_norm = _Norm2D(norm, planes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x), train))
+        out = self.bn2(self.conv2(out), train)
         if self.downsample_conv is not None:
-            x = self.downsample_norm(self.downsample_conv(x))
+            x = self.downsample_norm(self.downsample_conv(x), train)
         return F.relu(out + x)
 
 
@@ -85,12 +90,12 @@ class _Bottleneck2D(nn.Module):
             self.downsample_conv = SNConv(inplanes, planes * 4, (1, 1), stride, bias=False)
             self.downsample_norm = _Norm2D(norm, planes * 4)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x), train))
+        out = F.relu(self.bn2(self.conv2(out), train))
+        out = self.bn3(self.conv3(out), train)
         if self.downsample_conv is not None:
-            x = self.downsample_norm(self.downsample_conv(x))
+            x = self.downsample_norm(self.downsample_conv(x), train)
         return F.relu(out + x)
 
 
@@ -115,26 +120,33 @@ class ResNet2D(nn.Module):
                                 block(inplanes, planes, 1, norm, False))
         self.out_features = inplanes
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x), train))
         x = max_pool(x, 3, 2, 1)
         for name, mod in self.named_children():
             if name.startswith("layer"):
-                x = mod(x)
+                x = mod(x, train)
         return x.mean(dim=(2, 3), keepdim=True)
 
 
 class ResnetEncoder(nn.Module):
     """Conditioning encoder: image (B, 3, H, W) -> 2 * z_dim posterior params."""
 
-    def __init__(self, z_dim: int, encoder_type: str = "resnet50", norm: str = "in"):
+    def __init__(self, z_dim: int, encoder_type: str = "resnet50", norm: str = "in",
+                 deterministic: bool = False):
         super().__init__()
+        self.deterministic = deterministic
         self.model = ResNet2D(encoder_type, norm)
         self.fc = SNConv(self.model.out_features, 2 * z_dim, (1, 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        enc = self.fc(self.model(x))
+    @classmethod
+    def from_config(cls, cfg) -> "ResnetEncoder":
+        return cls(z_dim=cfg["z_dim"], encoder_type=cfg["encoder_type"], norm=cfg["norm"],
+                   deterministic=bool(cfg["deterministic"]))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        enc = self.fc(self.model(x, train))
         return enc.reshape(enc.shape[0], -1)
 
-    def encode(self, x: torch.Tensor) -> DiagonalGaussianDistribution:
-        return DiagonalGaussianDistribution.from_params(self(x))
+    def encode(self, x: torch.Tensor, train: bool = False) -> DiagonalGaussianDistribution:
+        return DiagonalGaussianDistribution.from_params(self(x, train), self.deterministic)

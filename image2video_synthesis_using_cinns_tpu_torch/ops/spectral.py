@@ -9,6 +9,12 @@ fold it into the weight once, when the checkpoint is loaded (``fold``,
 vectors, so the gradient flows through W alone, and one power iteration
 (``spectral_normalize``) refreshes them once a step, as the JAX trainer's
 ``mutable=["spectral"]`` pass does.
+
+The stage-2 AE's BigGAN layers use a third form (``biggan_sigma``,
+``ops/spectral.py:34-57`` with ``update=True`` and nothing written back):
+every forward, in training and in eval alike, iterates once from the stored
+``u`` with eps 1e-4 and divides by the sigma of the iterated vectors, which
+carry no gradient; the stored vectors never change.
 """
 
 from __future__ import annotations
@@ -41,10 +47,19 @@ def _l2normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 @torch.no_grad()
-def spectral_normalize(weight: torch.Tensor, u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def spectral_normalize(weight: torch.Tensor, u: torch.Tensor,
+                       eps: float = 1e-12) -> tuple[torch.Tensor, torch.Tensor]:
     """One power iteration of W_mat from the stored ``u``: v <- normalize(W_mat^T
-    u), u <- normalize(W_mat v), each normalised by its L2 norm plus 1e-12.
+    u), u <- normalize(W_mat v), each normalised by its L2 norm plus ``eps``.
     Returns the new (u, v); no gradient."""
     w = kernel_to_matrix(weight)
-    v = _l2normalize(w.t() @ u)
-    return _l2normalize(w @ v), v
+    v = _l2normalize(w.t() @ u, eps)
+    return _l2normalize(w @ v, eps), v
+
+
+def biggan_sigma(weight: torch.Tensor, u: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    """sigma = u'^T W_mat v with (u', v) one power iteration from the stored
+    ``u`` (``spectral_normalize``, no gradient): the gradient reaches the
+    weight through W_mat alone."""
+    u_new, v = spectral_normalize(weight, u, eps)
+    return u_new @ kernel_to_matrix(weight) @ v

@@ -139,7 +139,7 @@ def make_optimizers(models: Stage1Models, lr: float, weight_decay: float,
             mk(list(models.disc_s.parameters())))
 
 
-def _backward_into(loss: torch.Tensor, params: list[nn.Parameter]) -> None:
+def backward_into(loss: torch.Tensor, params: list[nn.Parameter]) -> None:
     """Set each parameter's ``.grad`` to d loss / d p (zeros where it does not
     reach, as the JAX gradient gives)."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -247,12 +247,12 @@ class Stage1Step:
             total, mt = self.disc_t_loss(fake_t, real_t, create_graph=gate_open)
             if gate_open:
                 self.opt_dt.zero_grad(set_to_none=True)
-                _backward_into(total, list(m.disc_t.parameters()))
+                backward_into(total, list(m.disc_t.parameters()))
                 self.opt_dt.step()
         with record_function("stage1/disc_s"):
             total, ms = self.disc_s_loss(fake_s, real_s)
             if gate_open:
-                _backward_into(total, list(m.disc_s.parameters()))
+                backward_into(total, list(m.disc_s.parameters()))
                 self.opt_ds.step()
         metrics.update({k: v.detach() for k, v in {**mt, **ms}.items()})
         del total, mt, ms
@@ -263,7 +263,7 @@ class Stage1Step:
         with record_function("stage1/vae_loss"):
             total, mv = self.vae_loss(fwd, draws, float(gate_open))
         with record_function("stage1/vae_backward"):
-            _backward_into(total, _ae_params(m))
+            backward_into(total, _ae_params(m))
         with record_function("stage1/optimizer"):
             self.opt_ae.step()
         with record_function("stage1/spectral"):

@@ -19,7 +19,8 @@ Leaves are recognised by the set of names in their dict:
 * ``{loc, scale}``: the flow's stacked ActNorm, kept as it is;
 * ``bn_mean``/``bn_var``/``bn_scale``/``bn_bias`` beside a ``conv``/``conv3d``
   leaf: the frozen BatchNorm of the metric backbones (I3D's ``Unit3D``,
-  Inception's ``BasicConv2d``), kept as they are.
+  Inception's ``BasicConv2d``), and the BigGAN self-attention's ``gamma``,
+  kept as they are.
 
 ``buffers`` leaves (the flow's shuffle permutations) are copied as int64:
 they are always taken from the tree, never drawn again. ``batch_stats``
@@ -29,8 +30,10 @@ buffers of the same names. ``actnorm_stats`` (``loc_init``, ``scale_init``,
 initialisation; inference reads the ``loc``/``scale`` params, so it is
 dropped.
 
-``to_variables`` goes the other way for the backbones, the in-norm embedder,
-the flow and the trainable stage-1 networks, so that the port writes
+``to_variables`` goes the other way for the backbones, the embedder, the
+flow, the trainable stage-1 networks and the stage-2 AE (its BigGAN layers
+keep the raw weight and ``u``/``v``, as ``fold_spectral=False`` loads them;
+an affine-free BatchNorm has only ``batch_stats``), so that the port writes
 checkpoints the JAX package reads.
 """
 
@@ -46,6 +49,7 @@ from . import checkpoint
 
 _COLLECTIONS = {"params", "spectral", "buffers", "batch_stats", "actnorm_stats"}
 _FROZEN_BN = ("bn_mean", "bn_var", "bn_scale", "bn_bias")
+_PLAIN_LEAVES = _FROZEN_BN + ("gamma",)
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -92,7 +96,7 @@ def _walk(tree: dict, spectral_tree: dict, path: tuple, out: dict, fold: bool) -
         out[_key(path, "scale")] = _tensor(tree["scale"])
         return
     for name, sub in tree.items():
-        if name in _FROZEN_BN:
+        if name in _PLAIN_LEAVES and not isinstance(sub, dict):
             out[_key(path, name)] = _tensor(sub)
             continue
         if not isinstance(sub, dict):
@@ -158,7 +162,7 @@ def to_variables(state_dict: dict[str, torch.Tensor]) -> dict:
             node["kernel"] = np.ascontiguousarray(np.transpose(a, tuple(range(2, a.ndim)) + (1, 0)))
         elif name == "weight" and a.ndim == 1:
             node["scale"] = a
-        elif name in ("bias", "loc", "scale", "u", "v", "mean", "var") + _FROZEN_BN:
+        elif name in ("bias", "loc", "scale", "u", "v", "mean", "var") + _PLAIN_LEAVES:
             node[name] = a
         else:
             raise ValueError(f"{key}: a leaf the bridge cannot write back")

@@ -75,6 +75,13 @@ class WandbSink:
         if self.enabled and self._run is not None:
             self._run.log(dic)
 
+    def log_image(self, key: str, image, caption: str | None = None) -> None:
+        """image: (H, W, C) uint8 (the AE trainer's recon grid)."""
+        if self.enabled and self._run is not None:
+            import wandb
+
+            self._run.log({key: [wandb.Image(image, caption=caption)]})
+
     def log_video(self, key: str, frames, fps: int = 3) -> None:
         """frames: (T, C, H, W) uint8, as ``plot_vid`` returns them."""
         if self.enabled and self._run is not None:
