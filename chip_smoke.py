@@ -108,6 +108,25 @@ Phases (any failure raises and the script exits non-zero):
    full-size control model, in its own counted window (4 reverse chains).
    Checks: the videos finite in [-1, 1]; the chain's z against its plain
    version.
+   4h. The reference's checkpoints: a full BAIR-preset model directory in
+   the reference framework's ``.pth`` key layout (``testing.
+   make_reference_model_dir``: the stage-1 decoder and encoder, ``cINN``, the
+   ResNet-50 'in' embedder, from seeded random port modules), converted with
+   ``cli/convert_weights.py model_dir`` and served by ``Model`` in its own
+   counted window (``Model.sample`` at bs 6, 16 frames, fp32 and bf16
+   decoder: 2 reverse chains; ``Model.transfer_sample`` of one 17-frame
+   query: 1 forward and 1 reverse chain). Checks: every converted leaf,
+   through the bridge, is its source module's tensor bitwise; the videos
+   and z equal (``SOURCE_TOL``) those of a ``Model`` given the source
+   weights directly (``testing.reference_model``), with the same residual;
+   z against the plain chains; full-size I3D (kinetics, DT-16, the TF-hub
+   ``.npz``), Inception and LPIPS with VGG16 written in their reference
+   layouts, converted by the CLI's kinds and read by the port's loaders,
+   give their source modules' activations; the AE trainer with
+   ``AE.pretrained: true`` on a synthesized ``biggan_64.pth`` (chn 96) takes
+   every decoder weight but ``G_linear`` from it, and one AE step on the
+   card gives finite losses. Prints each conversion's wall time and the
+   converted model's bf16 ``Model.forward`` latency by ``StepTimer``.
 5. Timings: each kernel's median ms beside its plain version and its bound;
    the reverse chain at B = 1, 6 and 16; where a chain's time goes, from the
    timeline build (per layer and pass, and the kernel's own span), and a
@@ -127,7 +146,7 @@ Phases (any failure raises and the script exits non-zero):
    before the first flow chain (the embedder; in transfer, the encoder and
    the query's embedding). The traces are written to ``smoke_out/`` (listed
    in ``.gitignore``).
-7. A ``{"kernels": [...]}`` line (launches summed over the eight counted
+7. A ``{"kernels": [...]}`` line (launches summed over the nine counted
    windows), then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is visible, and when the
@@ -2005,6 +2024,238 @@ def phase_endpoint(card: str, tmp: Path):
     return launches, device_launches
 
 
+# phase 4h, the reference's checkpoints: a BAIR-preset model directory in the
+# reference's .pth layout from seeded random port modules, converted with the
+# port's CLI and served; the converted model's videos and z against a Model
+# given the same weights directly (SOURCE_TOL: the same weights and inputs on one
+# card), the metric backbones' activations likewise, the AE from a synthesized
+# ImageNet BigGAN checkpoint (AE.pretrained)
+REF_SEED, REF_BACKBONE_SEED, REF_BIGGAN_SEED = 21, 22, 23
+SOURCE_TOL = 1e-6
+REF_BACKBONES = {  # convert_weights kind: (source file, its --dst under the weights root)
+    "i3d": ("model_rgb.pth", "PI3D/model_rgb.msgpack"),
+    "dti3d16": ("I3D_16.pth.tar", "DTI3D/length16/I3D_16.msgpack"),
+    "fid": ("pt_inception-2015-12-05-6726825d.pth", "FID/pt_inception.msgpack"),
+    "lpips": ("vgg.pth", "lpips/vgg_lpips.msgpack"),
+    "i3d_tf": ("tf_i3d.npz", "PI3D_tf/model_rgb.msgpack"),
+}
+REF_TIMED_RUNS = 7
+
+
+def phase_reference(card: str, tmp: Path):
+    """The reference-checkpoint path at the full BAIR preset: write, convert,
+    serve in a counted window, then the checks (see the module docstring)."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch import testing
+    from image2video_synthesis_using_cinns_tpu_torch.cli import convert_weights
+    from image2video_synthesis_using_cinns_tpu_torch.metrics import fid, fvd, lpips_eval
+    from image2video_synthesis_using_cinns_tpu_torch.models.facade import Model
+    from image2video_synthesis_using_cinns_tpu_torch.models.stage2.biggan import BigAE
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
+    from image2video_synthesis_using_cinns_tpu_torch.train import stage1, stage2_ae
+    from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint, convert
+    from image2video_synthesis_using_cinns_tpu_torch.utils.profiling import StepTimer
+
+    p = testing.PRESETS[PRESET]
+    t0 = time.perf_counter()
+    d = testing.make_reference_model_dir(str(tmp / "reference"), PRESET, seed=REF_SEED)
+    log(f"  [{card}] wrote the reference-layout {PRESET} directory (4 .pth files, "
+        f"{sum(f.stat().st_size for f in Path(d).parent.rglob('*.pth')) / 2**20:.1f} MiB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        convert_weights.main(["model_dir", "--src", d])
+    wall = time.perf_counter() - t0
+    written = out.getvalue().count("wrote")
+    log(f"  [{card}] convert_weights model_dir: {written} files in {wall:.2f} s")
+    if written != 4:
+        raise AssertionError(f"model_dir converted {written} files, not 4")
+
+    # every converted leaf, through the bridge, is the source module's tensor
+    src = testing.reference_sources(PRESET, REF_SEED)
+    files = {"decoder": "stage1/best_PFVD_GEN", "encoder": "stage1/best_PFVD_ENC",
+             "flow": "stage2/cINN", "embedder": "AE/Encoder_stage2"}
+    n_leaves = 0
+    for name, rel in files.items():
+        path = str(Path(d).parent / rel) + ".msgpack"
+        tree = checkpoint.variables(checkpoint.load(path), path)
+        if name == "flow":
+            tree = {c: t["flow"] for c, t in tree.items()}
+        got, want = convert.to_state_dict(tree, fold_spectral=False), src[name].state_dict()
+        bad = sorted(set(got) ^ set(want)) + [k for k in want if k in got
+                                               and not torch.equal(got[k], want[k])]
+        if bad:
+            raise AssertionError(f"converted {name} differs from its source: {bad[:5]}")
+        n_leaves += len(want)
+    log(f"  converted leaves equal to their sources bitwise: {n_leaves} tensors ok")
+
+    models = {dt: Model(d + "/", vid_length=EVAL_SEQ, transfer=dt == "float32",
+                        compute_dtype=dt, device=DEVICE) for dt in ("float32", "bfloat16")}
+    sources = {dt: testing.reference_model(PRESET, REF_SEED, EVAL_SEQ, transfer=dt == "float32",
+                                           compute_dtype=dt, device=DEVICE)
+               for dt in ("float32", "bfloat16")}
+    img = p["img_size"]
+    rng = np.random.default_rng(99)
+    x0 = torch.from_numpy(rng.uniform(-1, 1, (BATCH, 3, img, img)).astype(np.float32)).to(DEVICE)
+    residual = torch.from_numpy(
+        rng.standard_normal((BATCH, p["z_dim"])).astype(np.float32)).to(DEVICE)
+    q = torch.from_numpy(
+        rng.uniform(-1, 1, (1, p["seq_length"], 3, img, img)).astype(np.float32)).to(DEVICE)
+
+    torch.cuda.synchronize()
+    zero_counts()
+    with torch.no_grad():
+        outs = {dt: m.sample(x0, residual=residual) for dt, m in models.items()}
+        transferred = models["float32"].transfer_sample(q, x0)
+    torch.cuda.synchronize()
+    launches, device_launches = dict(fk.launches), dict(fk.device_launches)
+    log(f"  converted-model chain launches: {launches}; device kernels they launched: "
+        f"{device_launches}")
+    for name in ("flow_forward_fused", "flow_reverse_fused"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched serving the converted model")
+    if device_launches != launches:
+        raise AssertionError("a chain launched other than one device kernel")
+
+    with torch.no_grad():
+        for dt, (vid, z) in outs.items():
+            check_video(f"converted sample {dt}", vid, (BATCH, EVAL_SEQ, 3, img, img))
+            want_vid, want_z = sources[dt].sample(x0, residual=residual)
+            check(f"converted {dt} video_vs_source_weights", vid, want_vid, SOURCE_TOL)
+            check(f"converted {dt} z_vs_source_weights", z, want_z, SOURCE_TOL)
+        check_video("converted transfer float32", transferred[0], (BATCH, EVAL_SEQ, 3, img, img))
+        want_t = sources["float32"].transfer_sample(q, x0)
+        check("converted transfer video_vs_source_weights", transferred[0], want_t[0], SOURCE_TOL)
+        check("converted transfer z_vs_source_weights", transferred[1], want_t[1], SOURCE_TOL)
+        model = models["float32"]
+        flow, packed = model.flow, model.flow.flow.packed
+        emb = flow.embed([x0])
+        check("converted z_vs_plain", outs["float32"][1],
+              fk.flow_reverse_fused_ref(packed, residual, emb), TOL["bf16"])
+        _, mu, _ = model.encoder(q[:, 1:].permute(0, 2, 1, 3, 4))
+        nu_plain, _ = fk.flow_forward_fused_ref(packed, mu, flow.embed([q[:, 0]]))
+        check("converted transfer z_vs_plain", transferred[1],
+              fk.flow_reverse_fused_ref(packed, nu_plain.repeat(BATCH, 1), emb), TOL["bf16"])
+
+    timer = StepTimer()
+    sampler = models["bfloat16"]
+    for _ in range(2):
+        timer.start()
+        timer.stop(sampler.forward(x0, residual=residual))
+    times = []
+    for _ in range(REF_TIMED_RUNS):
+        timer.start()
+        times.append(timer.stop(sampler.forward(x0, residual=residual)))
+    log(f"  [{card}] converted BAIR Model.forward bs={BATCH} T={EVAL_SEQ} bf16 by StepTimer: "
+        f"median {statistics.median(times):.3f} ms over {REF_TIMED_RUNS} runs (EMA "
+        f"{timer.ema_ms:.3f} ms), {BATCH * EVAL_SEQ / statistics.median(times) * 1e3:.1f} "
+        f"frames/s")
+    del models, sources, sampler, model, flow
+
+    # the metric backbones: reference files -> the CLI's kinds -> the port's loaders
+    src_dir, root = tmp / "reference_sources", tmp / "reference_models"
+    src_dir.mkdir()
+    modules = {}
+    for kind, (name, _) in REF_BACKBONES.items():
+        modules[kind] = testing.write_reference_backbone(
+            kind, str(src_dir / name), seed=REF_BACKBONE_SEED,
+            vgg_path=str(src_dir / "vgg16-397923af.pth"))
+    # synthetic files cannot carry a published checksum: these three are
+    # trusted on first use here, recorded in the temporary models/CHECKSUMS.json
+    for name in ("fid", "lpips", "vgg16"):
+        convert_weights.WEIGHTS[name] = {}
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        for kind, (name, dst) in REF_BACKBONES.items():
+            argv = [kind, "--src", str(src_dir / name), "--dst", str(root / dst)]
+            if kind == "lpips":
+                argv += ["--vgg", str(src_dir / "vgg16-397923af.pth")]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                convert_weights.main(argv)
+            log(f"  [{card}] convert_weights {kind}: {time.perf_counter() - t0:.2f} s")
+    finally:
+        os.chdir(cwd)
+
+    clips = torch.from_numpy(rng.uniform(-1, 1, (2, 16, 3, 64, 64)).astype(np.float32))
+    frames = torch.from_numpy(rng.uniform(-1, 1, (10, 3, 64, 64)).astype(np.float32))
+    pairs = frames.flip(0)
+    with torch.no_grad():
+        for kind, loader_kind in (("i3d", "kinetics"), ("dti3d16", "dt16")):
+            loaded = fvd.load_model(loader_kind, str(root), device=DEVICE)
+            direct = fvd.build(loader_kind)
+            direct.load_state_dict({k: v for k, v in modules[kind].state_dict().items()
+                                    if not k.startswith("conv3d_0c_1x1")
+                                    or loader_kind == "kinetics"})
+            direct = fvd.I3DModel(direct.to(DEVICE).eval(), loader_kind)
+            v = fvd.prep_dt_time(clips, 16) if kind == "dti3d16" else clips
+            check(f"{kind} activations_vs_source", torch.from_numpy(
+                fvd.get_activations(loaded, v, 2)), torch.from_numpy(
+                fvd.get_activations(direct, v, 2)), SOURCE_TOL)
+        tf_module = fvd.build("kinetics")
+        convert.load_checkpoint(tf_module, str(root / REF_BACKBONES["i3d_tf"][1]))
+        tf_direct = fvd.I3DModel(modules["i3d_tf"].to(DEVICE), "kinetics")
+        check("i3d_tf activations_vs_source", torch.from_numpy(fvd.get_activations(
+            fvd.I3DModel(tf_module.to(DEVICE).eval(), "kinetics"), clips, 2)),
+            torch.from_numpy(fvd.get_activations(tf_direct, clips, 2)), SOURCE_TOL)
+        inception = fid.load_inception(str(root), device=DEVICE)
+        check("fid activations_vs_source", torch.from_numpy(fid.get_activations(inception, frames)),
+              torch.from_numpy(fid.get_activations(modules["fid"].to(DEVICE), frames)),
+              SOURCE_TOL)
+        lp = lpips_eval.load_lpips(str(root), device=DEVICE)
+        x, y = frames.to(DEVICE), pairs.to(DEVICE)
+        check("lpips distances_vs_source", lp(x, y), modules["lpips"].to(DEVICE)(x, y),
+              SOURCE_TOL)
+    del modules
+
+    # AE.pretrained: the decoder from a synthesized ImageNet BigGAN checkpoint
+    ae = dict(AE_MODELS["AE"], pretrained=True)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(REF_BIGGAN_SEED)
+        file_tree = convert.subtree(stage1.variables(BigAE(ae)), "decoder_wrap",
+                                     "decoder")
+    weights_root = tmp / "reference_models"
+    convert.save_reference(str(weights_root / "biggan" / "biggan_64.pth"),
+                           convert.to_reference(convert.convert_biggan_generator, file_tree, 64))
+    opt = ae_config(tmp, "", ae)
+    t0 = time.perf_counter()
+    ae_models = stage2_ae.build_models(opt, seed=0, weights_root=str(weights_root))
+    fresh = stage2_ae.build_models(ae_config(tmp, "", AE_MODELS["AE"]), seed=0)
+    got = ae_models.network.decoder_wrap.decoder.state_dict()
+    init = fresh.network.decoder_wrap.decoder.state_dict()
+    want = convert.to_state_dict(file_tree, fold_spectral=False)
+    from_file = [k for k in got if not k.startswith("G_linear.") and not k.endswith(".v")]
+    bad = [k for k in from_file if not torch.equal(got[k], want[k])]
+    bad += [k for k in got if k not in from_file and not torch.equal(got[k], init[k])]
+    log(f"  AE.pretrained: {len(from_file)} decoder tensors from biggan_64.pth, "
+        f"{len(got) - len(from_file)} (G_linear, BigGAN's v) at the fresh init: "
+        f"{'ok' if not bad else 'FAIL ' + str(bad[:5])}")
+    if bad:
+        raise AssertionError("AE.pretrained: the decoder is not the file's")
+    tr = dict(opt.Training)
+    ae_models.to(DEVICE)
+    step = stage2_ae.AEStep(ae_models, stage2_ae.make_optimizers(ae_models, tr["lr"],
+                                                                 tr["weight_decay"]), tr)
+    img = torch.from_numpy(rng.uniform(-1, 1, (4, 3, 64, 64)).astype(np.float32)).to(DEVICE)
+    metrics, _ = step(img, epoch=1)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    finite = all(np.isfinite(v) for v in metrics.values())
+    log(f"  [{card}] AE.pretrained: one AE step at bs 4 on {DEVICE} in "
+        f"{time.perf_counter() - t0:.2f} s (with the build): Loss {metrics['Loss']:.6g}, "
+        f"Loss_recon {metrics['Loss_recon']:.6g}, finite {'ok' if finite else 'FAIL'}")
+    if not finite:
+        raise AssertionError("AE.pretrained: a loss is not finite")
+    return launches, device_launches
+
+
 def _timeline_library(lib):
     from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
 
@@ -2385,7 +2636,11 @@ def main() -> int:
         log("== 4g. endpoint control (BAIR preset, random control model)")
         t0 = time.perf_counter()
         ep_launches, ep_device_launches = phase_endpoint(card, Path(tmp))
-    log(f"  phase 4g took {time.perf_counter() - t0:.2f} s")
+        log(f"  phase 4g took {time.perf_counter() - t0:.2f} s")
+        log("== 4h. the reference's checkpoints (BAIR preset, converted and served)")
+        t0 = time.perf_counter()
+        ref_launches, ref_device_launches = phase_reference(card, Path(tmp))
+    log(f"  phase 4h took {time.perf_counter() - t0:.2f} s")
 
     log("== 5. timings")
     rows = phase_timings(card, models, x0, residual)
@@ -2412,7 +2667,7 @@ def main() -> int:
 
     # each kernel at the shape its path gives it, in that path's mode (bf16
     # weights): the reverse at the BAIR sampling path's B=6, E=64, the forward
-    # at the transfer's one query, B=1, E=128; launches over all eight windows;
+    # at the transfer's one query, B=1, E=128; launches over all nine windows;
     # beside them each in the training path's fp32-weight mode at B=10, E=64
     kernels = []
     for name, line, r, shape, err_key in (
@@ -2425,11 +2680,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": f"{PALLAS_KERNEL}:{line}",
             "launches": (launches[name] + t_launches[name] + e_launches[name] + tr_launches[name]
-                         + s1_launches[name] + ae_launches[name] + ep_launches[name]),
+                         + s1_launches[name] + ae_launches[name] + ep_launches[name]
+                         + ref_launches[name]),
             "device_launches": (device_launches[name] + t_device_launches[name]
                                 + e_device_launches[name] + tr_device_launches[name]
                                 + s1_device_launches[name] + ae_device_launches[name]
-                                + ep_device_launches[name]),
+                                + ep_device_launches[name] + ref_device_launches[name]),
             "shape": f"{shape} hidden 512 20 blocks, bf16 weights",
             "max_abs_err": errs[err_key],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -40,16 +40,16 @@ def add_serving_flags(parser: argparse.ArgumentParser) -> None:
                         help="decoder dtype (the encoder, embedder and flow stay fp32)")
     parser.add_argument("-device", type=str, default="cuda", help="cuda or cpu")
     parser.add_argument("-data_parallel", action="store_true",
-                        help="not ported yet: raises (ROADMAP slice 9)")
+                        help="not ported yet: raises (ROADMAP slice 10)")
     parser.add_argument("-spatial_shard", type=int, default=0,
-                        help="not ported yet: raises (ROADMAP slice 9)")
+                        help="not ported yet: raises (ROADMAP slice 10)")
 
 
 def serving_device(args: argparse.Namespace) -> str:
     """The device the flags ask for; raises on the multi-device flags."""
     if args.data_parallel or args.spatial_shard:
         raise NotImplementedError("-data_parallel and -spatial_shard: multi-device serving is "
-                                  "not ported yet (ROADMAP slice 9, parallelism)")
+                                  "not ported yet (ROADMAP slice 10, parallelism)")
     if args.device == "cuda" and args.gpu is not None:
         return f"cuda:{int(args.gpu)}"
     return args.device

@@ -3,7 +3,8 @@ rows over frames in [-1, 1], batch size 50, as the reference's
 ``metrics/FID/FID_Score.py``.
 
 Weights: ``<weights_root>/FID/pt_inception.msgpack``, a variables tree of the
-JAX package's ``InceptionV3FID``; a missing file raises. The materialised
+JAX package's ``InceptionV3FID`` (``cli/convert_weights.py fid`` writes it
+from the reference's ``.pth``); a missing file raises. The materialised
 ``calculate_FID`` is not ported: the eval CLIs stream
 (``streaming_eval.py``).
 """
@@ -28,7 +29,8 @@ def load_inception(weights_root: str = "models", device=None) -> InceptionV3FID:
     if path is None:
         raise FileNotFoundError(
             f"FID inception weights not found under {weights_root}/FID/; convert "
-            "pt_inception-2015-12-05 with the JAX package's utils/convert.py"
+            "pt_inception-2015-12-05 with python -m image2video_synthesis_using_cinns_tpu_torch"
+            ".cli.convert_weights fid --src <file> (docs/WEIGHTS.md, entry fid)"
         )
     module = convert.load_checkpoint(InceptionV3FID(), path)
     return module.to(resolve_device(device)).eval()

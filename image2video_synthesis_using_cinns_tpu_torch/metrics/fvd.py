@@ -9,8 +9,10 @@
 
 Weights: ``<weights_root>/PI3D/model_rgb.msgpack`` and
 ``<weights_root>/DTI3D/length{16,32}/I3D_{16,32}.msgpack``, variables trees
-of the JAX package's I3D (``utils/convert.py`` carries them over). A missing
-file raises ``FileNotFoundError``: there is no random fallback.
+of the JAX package's I3D (``cli/convert_weights.py`` writes them from the
+reference's ``.pth`` files; the DT nets' converted ``logits`` head is unused
+and dropped at load, as the JAX module ignores it). A missing file raises
+``FileNotFoundError``: there is no random fallback.
 
 Videos are the port's layout, (N, T, C, H, W); activations come back as
 float32 rows. The materialised scoring functions (``calculate_FVD``,
@@ -56,16 +58,21 @@ WEIGHT_FILES = {
 }
 
 
+CLI_KINDS = {"kinetics": "i3d", "dt16": "dti3d16", "dt32": "dti3d32"}
+REGISTRY = {"kinetics": "pi3d", "dt16": "dti3d16", "dt32": "dti3d32"}
+
+
 def load_model(kind: str = "kinetics", weights_root: str = "models", device=None) -> I3DModel:
     module = build(kind)
     path = os.path.join(weights_root, WEIGHT_FILES[kind])
     found = ckpt_io.find(os.path.splitext(path)[0])
     if found is None:
         raise FileNotFoundError(
-            f"I3D weights not found at {path}; convert the reference weights "
-            "with the JAX package's utils/convert.py (see README)"
+            f"I3D weights not found at {path}; convert the reference weights with "
+            f"python -m image2video_synthesis_using_cinns_tpu_torch.cli.convert_weights "
+            f"{CLI_KINDS[kind]} --src <file> (docs/WEIGHTS.md, entry {REGISTRY[kind]})"
         )
-    convert.load_checkpoint(module, found)
+    convert.load_checkpoint(module, found, drop=() if kind == "kinetics" else ("conv3d_0c_1x1",))
     return I3DModel(module.to(resolve_device(device)).eval(), kind)
 
 

@@ -2,7 +2,10 @@
 VGG flavour, scored in batches of 10 frame pairs by ``streaming_eval.py``.
 
 ``load_lpips`` reads ``<weights_root>/lpips/vgg_lpips.msgpack`` (a variables
-tree of the JAX package's ``LPIPS``). Without it the module runs with random
+tree of the JAX package's ``LPIPS``, which ``python -m
+image2video_synthesis_using_cinns_tpu_torch.cli.convert_weights lpips --src
+vgg.pth --vgg vgg16-397923af.pth`` writes; docs/WEIGHTS.md, entry lpips).
+Without it the module runs with random
 weights, as the JAX package's does, so pipelines and timings work offline;
 the port draws them from its own fixed torch seed (``RANDOM_INIT_SEED``),
 which cannot reproduce JAX's ``PRNGKey(0)`` draw, so the two random LPIPS

@@ -107,12 +107,20 @@ class Model:
     @classmethod
     def from_configs(cls, config, config_stage1, ae_cfg, vid_length: int, transfer: bool = False,
                      seed: int = 0, use_kernel: bool = True, compute_dtype: str = "float32",
-                     device: str | torch.device | None = None) -> "Model":
-        """A model with random weights drawn from ``seed``, built from configs
-        held in memory (no checkpoint directory, no YAML reader needed)."""
+                     device: str | torch.device | None = None,
+                     state_dicts: dict | None = None) -> "Model":
+        """A model built from configs held in memory (no checkpoint directory,
+        no YAML reader needed), with random weights drawn from ``seed``, or
+        the serving state dicts in ``state_dicts`` (``decoder``, ``flow``:
+        the ``SupervisedTransformer`` with its embedder, ``encoder``)."""
+        def load_weights(decoder, flow, encoder) -> None:
+            for name, module in (("decoder", decoder), ("flow", flow), ("encoder", encoder)):
+                if module is not None and name in state_dicts:
+                    module.load_state_dict(state_dicts[name])
+
         self = cls.__new__(cls)
         self._setup(config, config_stage1, ae_cfg, vid_length, transfer, seed, use_kernel,
-                    compute_dtype, device, None)
+                    compute_dtype, device, load_weights if state_dicts else None)
         return self
 
     def _setup(self, config, config_stage1, ae_cfg, vid_length, transfer, seed, use_kernel,
@@ -216,8 +224,4 @@ class Model:
 
 
 def _variables(path: str) -> dict:
-    payload = ckpt_io.load(path)
-    variables = payload.get("state_dict", payload)
-    if not isinstance(variables, dict) or not ({"params", "buffers"} & set(variables)):
-        raise ValueError(f"{path} is not a variables checkpoint of the JAX package")
-    return variables
+    return ckpt_io.variables(ckpt_io.load(path), path)

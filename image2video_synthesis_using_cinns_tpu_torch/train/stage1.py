@@ -26,7 +26,7 @@ decoder against the temporal and patch discriminators.
 
 Every random draw comes from ``Draws`` (CPU generators keyed by purpose,
 epoch and batch); tests subclass it to inject the JAX trainer's draws.
-``Training.distributed`` raises (ROADMAP slice 9); ``fused_step`` and
+``Training.distributed`` raises (ROADMAP slice 10); ``fused_step`` and
 ``steps_per_dispatch``, TPU dispatch fusion whose steps equal single steps,
 are ignored. ``train`` runs built modules over given loaders;
 ``main`` builds them from the config. On a CUDA device TF32 is off.
@@ -182,7 +182,7 @@ def networks(models: Stage1Models) -> dict:
 def _check_supported(opt) -> None:
     if opt.Training.get("distributed"):
         raise NotImplementedError("Training.distributed: multi-host and data-parallel training "
-                                  "are not ported yet (ROADMAP slice 9)")
+                                  "are not ported yet (ROADMAP slice 10)")
 
 
 def train(opt, models: Stage1Models, train_loader, eval_loader, *, device=None,
@@ -237,6 +237,7 @@ def train(opt, models: Stage1Models, train_loader, eval_loader, *, device=None,
             p = ckpt_io.find(os.path.join(tr["reload_path"], f"latest_checkpoint_{name}"))
             if p:
                 payloads[name] = ckpt_io.load(p)
+                ckpt_io.variables(payloads[name], p)  # a reference-layout file raises
         if "GEN" in payloads:
             for name, module in networks(models).items():
                 load_variables(module, payloads[name]["state_dict"])

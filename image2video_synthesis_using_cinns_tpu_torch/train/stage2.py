@@ -218,7 +218,7 @@ def _check_supported(opt) -> None:
     tr = opt.Training
     if tr.get("distributed"):
         raise NotImplementedError("Training.distributed: multi-host and data-parallel training "
-                                  "are not ported yet (ROADMAP slice 9)")
+                                  "are not ported yet (ROADMAP slice 10)")
     if tr.get("cache_posteriors"):
         raise NotImplementedError("Training.cache_posteriors: the posterior cache is not ported "
                                   "yet (ROADMAP item 11b)")
@@ -285,7 +285,7 @@ def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
         latest = ckpt_io.find(os.path.join(tr["reload_path"], "cINN_latest"))
         if latest:
             payload = ckpt_io.load(latest)
-            vars_in = payload["state_dict"]
+            vars_in = ckpt_io.variables(payload, latest)
             network.load_state_dict(convert.to_state_dict(vars_in))
             models.embedder_tree = vars_in["params"]["embedder"]
             if "optim_state_dict" in payload:

@@ -48,8 +48,9 @@ random from ``seed`` and ``seed + 1``.
 The augment's draws come from ``Draws`` (its ``augment`` purpose, keyed by
 epoch and batch; tests inject the JAX trainer's ``fold_in(PRNGKey(42),
 global_step)``); the eval transform draws nothing. ``AE.pretrained: true``
-(the ImageNet BigGAN weights, not in the repository) and
-``Training.distributed`` raise; ``steps_per_dispatch``, a TPU dispatch
+starts the decoder from the ImageNet BigGAN checkpoint (``build_models``;
+not in the repository, docs/WEIGHTS.md), and a missing file raises.
+``Training.distributed`` raises; ``steps_per_dispatch``, a TPU dispatch
 mechanism whose steps equal single steps, is ignored. fp32, with TF32 off on
 a CUDA device. The spans (``stage2_ae/...``) name the phases for a
 profiler's trace.
@@ -81,6 +82,7 @@ from ..models.layers import init_actnorm, power_iteration_, updating_batch_stats
 from ..models.stage1.patch_disc import NLayerDiscriminator
 from ..models.stage2.biggan import BigAE
 from ..utils import checkpoint as ckpt_io
+from ..utils import convert
 from ..utils.logging import CSVlogger, Logging, WandbSink
 from . import stage1, stage2
 from .optim import Adam, LRController, set_lr
@@ -121,13 +123,21 @@ class Draws(stage2.Draws):
     PURPOSES = ("augment",)
 
 
-def build_models(opt, seed: int = 0) -> AEModels:
+def build_models(opt, seed: int = 0, weights_root: str = "models",
+                 biggan_sd: dict | None = None) -> AEModels:
     """Random networks of the config's shapes, drawn from ``seed`` (BigAE)
-    and ``seed + 1`` (discriminator), the LPIPS of ``LPIPS_SEED``, on the CPU."""
+    and ``seed + 1`` (discriminator), the LPIPS of ``LPIPS_SEED``, on the CPU.
+    With ``AE.pretrained: true`` every decoder weight but ``G_linear`` comes
+    from ``{weights_root}/biggan/biggan_{in_size}.pth`` (or the state dict
+    ``biggan_sd``), as ``convert.pretrained_init_biggan`` maps it."""
     _check_supported(opt)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         network = BigAE(dict(opt.AE))
+        if bool(opt.AE.get("pretrained", False)):
+            tree = convert.pretrained_init_biggan(stage1.variables(network), dict(opt.AE),
+                                                  weights_root, sd=biggan_sd)
+            stage1.load_variables(network, tree)
         torch.manual_seed(seed + 1)
         disc = NLayerDiscriminator.from_config(opt.Discriminator_Patch)
         torch.manual_seed(LPIPS_SEED)
@@ -222,12 +232,9 @@ def recon_grid(img: torch.Tensor, recon: torch.Tensor) -> np.ndarray:
 
 
 def _check_supported(opt) -> None:
-    if bool(opt.AE.get("pretrained", False)):
-        raise NotImplementedError("AE.pretrained: the ImageNet BigGAN weights are not in the "
-                                  "repository (docs/WEIGHTS.md); set it to false")
     if opt.Training.get("distributed"):
         raise NotImplementedError("Training.distributed: multi-host and data-parallel training "
-                                  "are not ported yet (ROADMAP slice 9)")
+                                  "are not ported yet (ROADMAP slice 10)")
 
 
 def train(opt, models: AEModels, train_loader, eval_loader, *, device=None,

@@ -14,7 +14,12 @@ split the same way on write.
 ``"0"``, ``"1"``, ...; every leaf with a shape, torch tensors included, is an
 ndarray; bf16 tensors keep the ``bfloat16`` dtype name). ``AsyncWriter``
 writes on a background thread, as the JAX package's ``save_async``/``wait``
-do. Reading a torch ``.pth`` checkpoint is not ported yet.
+do. ``find`` also finds the reference framework's torch checkpoints
+(``.pth``, ``.pth.tar``), and ``load`` of a missing ``.msgpack`` falls back
+to the ``.pth`` beside it, returning its raw payload, as the JAX package's
+do; ``utils/convert.py`` maps such a payload, and the CLI
+``cli/convert_weights.py`` writes the ``.msgpack`` files that the loaders
+read (``variables`` refuses a reference payload and names that CLI).
 """
 
 from __future__ import annotations
@@ -329,29 +334,45 @@ def get_save_dict(variables: dict, opt_state: dict, epoch: int) -> dict:
     return {"epoch": epoch + 1, "state_dict": variables, "optim_state_dict": opt_state}
 
 
+CONVERT_HINT = ("convert the reference's checkpoints first: python -m "
+                "image2video_synthesis_using_cinns_tpu_torch.cli.convert_weights model_dir "
+                "--src <stage2 dir> (or one of its other kinds; docs/WEIGHTS.md)")
+
+
 def load(path: str) -> dict:
-    """Read a flax ``.msgpack`` checkpoint into a tree of dicts and numpy arrays."""
-    if not path.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{path}: only .msgpack checkpoints are readable by the torch port; "
-            "reading torch .pth files is not ported yet"
-        )
+    """Read a flax ``.msgpack`` checkpoint into a tree of dicts and numpy
+    arrays. A missing ``x.msgpack`` with an ``x.pth`` beside it, or a path
+    to a ``.pth``/``.pth.tar`` file, gives that file's raw torch payload."""
+    if not os.path.exists(path) and path.endswith(".msgpack"):
+        torch_path = path[: -len(".msgpack")] + ".pth"
+        if os.path.exists(torch_path):
+            path = torch_path
+    if path.endswith((".pth", ".pth.tar")):
+        from .convert import load_torch_checkpoint
+
+        return load_torch_checkpoint(path)
     with open(path, "rb") as f:
         return _unchunk(unpackb(f.read()))
 
 
 def find(path_no_ext: str) -> str | None:
-    """Return the ``.msgpack`` checkpoint for a stem, or None if there is none.
-
-    A ``.pth`` checkpoint with the same stem raises: the port cannot read it yet.
-    """
-    p = path_no_ext + ".msgpack"
-    if os.path.exists(p):
-        return p
-    for suffix in (".pth", ".pth.tar"):
+    """The checkpoint for a stem: ``.msgpack``, else ``.pth``, else
+    ``.pth.tar``; None if there is none."""
+    for suffix in (".msgpack", ".pth", ".pth.tar"):
         if os.path.exists(path_no_ext + suffix):
-            raise NotImplementedError(
-                f"{path_no_ext + suffix}: reading torch .pth checkpoints is not "
-                "ported yet; convert it to .msgpack with the JAX package"
-            )
+            return path_no_ext + suffix
     return None
+
+
+def variables(payload: dict, path: str) -> dict:
+    """The variables tree of a loaded checkpoint (``{"state_dict": tree}`` or
+    the bare tree). A state dict in the reference framework's key layout
+    (dotted keys, torch tensors) raises, naming the converter."""
+    tree = payload.get("state_dict", payload) if isinstance(payload, dict) else payload
+    if isinstance(tree, dict) and tree and all(
+            isinstance(k, str) and "." in k and not isinstance(v, dict) for k, v in tree.items()):
+        raise ValueError(f"{path} holds a state dict in the reference framework's key layout; "
+                         + CONVERT_HINT)
+    if not isinstance(tree, dict) or not ({"params", "buffers"} & set(tree)):
+        raise ValueError(f"{path} is not a variables checkpoint of the JAX package")
+    return tree

@@ -21,6 +21,7 @@ from image2video_synthesis_using_cinns_tpu.utils import video as jvideo
 from image2video_synthesis_using_cinns_tpu_torch.cli import generate_samples, generate_transfer
 from image2video_synthesis_using_cinns_tpu_torch.utils import seed as tseed
 from image2video_synthesis_using_cinns_tpu_torch.utils import video as tvideo
+from test_torch_port_stage1_step import two_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -64,7 +65,7 @@ def test_generate_samples_cli(tmp_path, monkeypatch, ckpt):
 @pytest.mark.parametrize("flag", [["-data_parallel"], ["-spatial_shard", "2"]])
 @pytest.mark.parametrize("cli", [generate_samples, generate_transfer])
 def test_multi_device_flags_raise(cli, flag):
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="slice 10"):
         cli.main(["-dataset", "landscape", "-ckpt_path", "unused/", "-device", "cpu"] + flag)
 
 

@@ -26,7 +26,7 @@ port's ``cli/visualize_endpoint.py``.
   by the port's ``Model`` and stage-2 ``build_models``, which embed as the
   JAX encoder does.
 * The CLI trains on the CPU and writes the JAX layout (config, CSVs, recon
-  grid, encoder); ``AE.pretrained`` and ``Training.distributed`` raise; the
+  grid, encoder); ``AE.pretrained`` without its file and ``Training.distributed`` raise; the
   entry points default to ``cuda``.
 * ``visualize_endpoint -device cpu`` against the root script on the JAX
   package's tiny control checkpoint and a synthetic BAIR endpoint test
@@ -271,12 +271,13 @@ def test_cli_trains_on_the_cpu(world, variables, monkeypatch):
 
 def test_unported_options_raise_and_entry_points_default_to_cuda(world, monkeypatch):
     opt = _opt(tcfg, world, "raise")
-    opt.AE["pretrained"] = True
-    with pytest.raises(NotImplementedError, match="pretrained"):
+    opt.AE["pretrained"] = True  # the ImageNet BigGAN file is absent: the JAX package's error
+    with pytest.raises(FileNotFoundError, match="no ImageNet BigGAN checkpoint at "
+                                                "models/biggan/biggan_64.pth"):
         tae.main(opt, device="cpu")
     opt = _opt(tcfg, world, "raise")
     opt.Training["distributed"] = True
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="slice 10"):
         tae.main(opt, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -342,7 +343,7 @@ def test_visualize_endpoint_cli(tmp_path, monkeypatch):
     assert v.shape == want.shape == (3, 2, 8, 3, 32, 32)
     assert np.isfinite(v).all() and np.abs(v).max() <= 1
     np.testing.assert_allclose(v, want, rtol=ENDPOINT_TOL, atol=ENDPOINT_TOL)
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="slice 10"):
         visualize_endpoint.main(args + ["-device", "cpu", "-data_parallel"])
     with pytest.raises(ValueError, match="BAIR only"):
         visualize_endpoint.main(["-dataset", "landscape", "-device", "cpu"])

@@ -22,6 +22,7 @@ import pytest
 from image2video_synthesis_using_cinns_tpu.models.facade import Model as JaxModel
 from image2video_synthesis_using_cinns_tpu.testing import make_model_dir
 from image2video_synthesis_using_cinns_tpu_torch.models.facade import Model
+from test_torch_port_stage1_step import two_threads  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "tiny_control_v1.npz")
 

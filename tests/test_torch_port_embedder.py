@@ -20,6 +20,7 @@ from image2video_synthesis_using_cinns_tpu.models.stage2.resnet2d import ResnetE
 from image2video_synthesis_using_cinns_tpu_torch.models.stage2.inn import SupervisedTransformer
 from image2video_synthesis_using_cinns_tpu_torch.models.stage2.resnet2d import ResnetEncoder
 from image2video_synthesis_using_cinns_tpu_torch.utils.convert import to_state_dict
+from test_torch_port_stage1_step import two_threads  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -24,6 +24,7 @@ from image2video_synthesis_using_cinns_tpu.ops.spectral import kernel_to_matrix
 from image2video_synthesis_using_cinns_tpu_torch.models import layers as tl
 from image2video_synthesis_using_cinns_tpu_torch.models.stage1.resnet3d import Encoder
 from image2video_synthesis_using_cinns_tpu_torch.utils.convert import to_state_dict
+from test_torch_port_stage1_step import two_threads  # noqa: F401
 
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -40,6 +40,7 @@ from image2video_synthesis_using_cinns_tpu_torch.metrics import lpips_eval as tl
 from image2video_synthesis_using_cinns_tpu_torch.metrics import streaming_eval as tstream
 from image2video_synthesis_using_cinns_tpu_torch.models.backbones.vgg16 import VGG16Features
 from image2video_synthesis_using_cinns_tpu_torch.utils import convert
+from test_torch_port_stage1_step import two_threads  # noqa: F401
 
 KIND_SEEDS = {"kinetics": 3, "dt16": 4, "dt32": 5}
 
@@ -255,7 +256,7 @@ def test_eval_diversity_cli_matches_jax(tiny_dirs, stand_ins, same_residuals, mo
 @pytest.mark.parametrize("flag", [["-data_parallel"], ["-spatial_shard", "2"]])
 @pytest.mark.parametrize("cli", [eval_synthesis_quality, eval_diversity])
 def test_multi_device_flags_raise(cli, flag):
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="slice 10"):
         cli.main(["-dataset", "bair", "-data_path", "unused/", "-ckpt_path", "unused/",
                   "-device", "cpu"] + flag)
 

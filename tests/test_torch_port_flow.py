@@ -37,6 +37,7 @@ from image2video_synthesis_using_cinns_tpu_torch.models.stage2 import flow as tf
 from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import build
 from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
 from image2video_synthesis_using_cinns_tpu_torch.utils.convert import to_state_dict
+from test_torch_port_stage1_step import two_threads  # noqa: F401
 
 C, E, H, NF, B = 16, 12, 32, 5, 8  # the shapes of tests/test_pallas_flow.py
 

@@ -26,6 +26,7 @@ from image2video_synthesis_using_cinns_tpu_torch.ops import norms as tnorms
 from image2video_synthesis_using_cinns_tpu_torch.ops import resize as tresize
 from image2video_synthesis_using_cinns_tpu_torch.ops import spectral as tspectral
 from image2video_synthesis_using_cinns_tpu_torch.utils.convert import to_state_dict
+from test_torch_port_stage1_step import two_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

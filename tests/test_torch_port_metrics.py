@@ -41,6 +41,7 @@ from image2video_synthesis_using_cinns_tpu_torch.models.backbones.lpips import L
 from image2video_synthesis_using_cinns_tpu_torch.models.backbones.vgg16 import VGG16Features
 from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint as tckpt
 from image2video_synthesis_using_cinns_tpu_torch.utils import convert
+from test_torch_port_stage1_step import two_threads  # noqa: F401
 
 DEEP_TOL = 1e-4
 VGG_TOL = 1e-5

@@ -17,10 +17,13 @@ import pytest
 from image2video_synthesis_using_cinns_tpu.utils import checkpoint as jax_ckpt
 from image2video_synthesis_using_cinns_tpu_torch import config as tcfg
 from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint as tckpt
+from test_torch_port_stage1_step import two_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "image2video_synthesis_using_cinns_tpu_torch"
-FORBIDDEN = ("jax", "flax", "optax", "image2video_synthesis_using_cinns_tpu")
+# the JAX package, its libraries and the scripts beside it (``scripts/``)
+FORBIDDEN = ("jax", "flax", "optax", "image2video_synthesis_using_cinns_tpu", "scripts",
+             "fetch_weights", "parity_report", "convert_weights")
 
 
 def _imported_modules(path: Path):
@@ -38,6 +41,7 @@ def test_port_imports_no_jax():
     files = sorted(f for f in PORT.rglob("*.py") if "_build" not in f.relative_to(PORT).parts)
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    assert {PORT / "cli" / "convert_weights.py", PORT / "utils" / "profiling.py"} <= set(files)
     bad = []
     for f in files:
         for mod in _imported_modules(f):
@@ -179,13 +183,13 @@ def test_stage2_config_has_the_jax_data_section(preset):
 
 
 def test_find_msgpack_only(tmp_path):
+    """``find`` tries ``.msgpack``, then ``.pth``, then ``.pth.tar``, as the
+    JAX package's does."""
     stem = str(tmp_path / "model")
-    assert tckpt.find(stem) is None
-    open(stem + ".pth", "wb").close()
-    with pytest.raises(NotImplementedError):
-        tckpt.find(stem)
-    open(stem + ".msgpack", "wb").close()
-    assert tckpt.find(stem) == stem + ".msgpack"
+    assert tckpt.find(stem) is None is jax_ckpt.find(stem)
+    for suffix in (".pth.tar", ".pth", ".msgpack"):
+        open(stem + suffix, "wb").close()
+        assert tckpt.find(stem) == jax_ckpt.find(stem) == stem + suffix
 
 
 def test_config_loads_yaml(tmp_path):

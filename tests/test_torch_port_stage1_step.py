@@ -62,6 +62,7 @@ from image2video_synthesis_using_cinns_tpu.models.stage1.resnet3d import (
 )
 from image2video_synthesis_using_cinns_tpu.models.stage1.resnet3d import Encoder as JEncoder
 from image2video_synthesis_using_cinns_tpu.ops.spectral import kernel_to_matrix
+from image2video_synthesis_using_cinns_tpu.parallel.mesh import make_mesh, replicate, shard_batch
 from image2video_synthesis_using_cinns_tpu.testing import PRESETS, stage1_config
 from image2video_synthesis_using_cinns_tpu.train.optim import adam_torch
 from image2video_synthesis_using_cinns_tpu.train.stage1_step import (
@@ -176,6 +177,18 @@ class World:
         mk = lambda: adam_torch(tr["lr"], betas=(0.5, 0.9), weight_decay=tr["weight_decay"])  # noqa: E731
         self.jopts = (mk(), mk(), mk())
         self.step_fn = make_stage1_train_step(self.bundle, tr, self.jopts)
+        self.mesh = make_mesh(1)
+
+    def on_mesh(self, tree):
+        """``tree`` replicated on a one-device mesh, and ``batch_on_mesh`` the
+        batch sharded on it, as the JAX trainer places its state and batches:
+        the step and eval programs are then those that
+        ``test_torch_port_stage1_train.py``'s JAX ``main`` compiles (the
+        same shapes and config), and the compile cache serves the second."""
+        return replicate(self.mesh, tree)
+
+    def batch_on_mesh(self):
+        return shard_batch(self.mesh, jnp.asarray(self.seq))
 
     def jax_state(self):
         v = jax.tree.map(jnp.array, self.vars)
@@ -246,8 +259,8 @@ class Step:
         self.world, self.lr = world, float(tr["lr"])
         self.gate_open = epoch >= int(tr["pretrain"])
         self.draws = world.draws(key)
-        self.state, jm, jgen = world.step_fn(world.jax_state(), jnp.asarray(world.seq),
-                                             jnp.asarray(epoch), key)
+        self.state, jm, jgen = world.step_fn(world.on_mesh(world.jax_state()),
+                                             world.batch_on_mesh(), jnp.asarray(epoch), key)
         self.jax_metrics = {k: float(v) for k, v in jm.items()}
         self.jax_gen = np.moveaxis(np.asarray(jgen), -1, 2)
         self.models, self.optimizers, self.metrics, gen = world.port_step(epoch, self.draws)
@@ -361,12 +374,17 @@ def test_step_gate(step):
 
 @pytest.fixture(scope="module", autouse=True)
 def two_threads():
-    """Two intra-op threads for the port while this module runs: the same
-    results, and a fraction of the CPU time when test workers share the
-    cores (more threads spin in their parallel regions)."""
+    """Two intra-op threads for the port, and two for numpy's and scipy's
+    BLAS, while this module runs: the same results, and a fraction of the
+    CPU time when test workers share the cores (more threads spin in their
+    parallel regions)."""
+    import scipy.linalg  # noqa: F401 (load its BLAS, so that the limit covers it)
+    from threadpoolctl import threadpool_limits
+
     n = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with threadpool_limits(limits=2, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 
@@ -379,7 +397,8 @@ def test_eval_step_matches_jax(world):
     key = jax.random.PRNGKey(3)
     eval_fn = make_stage1_eval_step(world.bundle)
     v = jax.tree.map(jnp.asarray, world.vars)
-    want, jgen = eval_fn(v["GEN"], v["ENC"], jnp.asarray(world.seq), key)
+    want, jgen = eval_fn(world.on_mesh(v["GEN"]), world.on_mesh(v["ENC"]),
+                         world.batch_on_mesh(), key)
     got, gen = tstep.eval_step(world.port, torch.from_numpy(world.seq),
                                torch.tensor(jax_eps(key, (BATCH, P9["z_dim"]))))
     assert set(got) == set(want) == set(ts1.TEST_KEYS[:-1])

@@ -389,7 +389,7 @@ def test_cli_trains_on_cpu_and_warns_once_without_i3d(world, tmp_path, monkeypat
 def test_unported_option_raises_and_entry_points_default_to_cuda(world, monkeypatch):
     opt = _opt(tcfg, world, "port_raise", 1)
     opt.Training["distributed"] = True
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="slice 10"):
         ts1.main(opt, eval_fvd=False, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -23,6 +23,7 @@ from image2video_synthesis_using_cinns_tpu.data.registry import augment_params a
 from image2video_synthesis_using_cinns_tpu_torch import config as tcfg
 from image2video_synthesis_using_cinns_tpu_torch.data import augment as taug
 from image2video_synthesis_using_cinns_tpu_torch.data.registry import augment_params as tparams
+from test_torch_port_stage1_step import two_threads  # noqa: F401
 
 BAIR = {"brightness": 0.1, "contrast": 0.1, "saturation": 0.1, "hue": 0, "prob_hflip": 0.5}
 LANDSCAPE = {"brightness": 0.2, "contrast": 0.3, "saturation": 0.2, "hue": 0.4, "prob_hflip": 0.5}

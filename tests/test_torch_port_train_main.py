@@ -48,6 +48,7 @@ from image2video_synthesis_using_cinns_tpu_torch.train import stage2 as tstage2
 from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint as tckpt
 from image2video_synthesis_using_cinns_tpu_torch.utils import convert
 from test_torch_port_train_augment import jax_draws
+from test_torch_port_stage1_step import two_threads  # noqa: F401
 
 LR = 1e-5  # the tiny preset's stage-2 config
 LOSS_KEYS = ("Loss", "reference_nll_loss", "nlogdet_loss", "nll_loss")
@@ -262,7 +263,7 @@ def test_sigterm_stops_the_run_and_writes_latest(world, monkeypatch):
     assert signal.getsignal(signal.SIGTERM) is before
 
 
-@pytest.mark.parametrize("key,value,match", [("distributed", True, "slice 9"),
+@pytest.mark.parametrize("key,value,match", [("distributed", True, "slice 10"),
                                              ("cache_posteriors", True, "item 11b")])
 def test_unported_options_raise(world, key, value, match):
     opt = _opt(tcfg, world, "port_raise", 1)
