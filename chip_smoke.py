@@ -41,8 +41,12 @@ Phases (any failure raises and the script exits non-zero):
    FID of a set against itself near 0 (``self_distance``), LPIPS(x, x) = 0;
    each backbone on the card against the same module on the CPU
    (``BACKBONE_TOL``); the stream's Fréchet values against activations taken
-   at another batch size (``BATCHING_TOL``). Then the eval's wall time and
-   clips/s for each body and its stages, each timed alone.
+   at another batch size (``BATCHING_TOL``); the materialised scorers on the
+   card over the same clips with the streams' tail drops (``calculate_FVD``
+   kinetics and DT-16, ``compute_fvd_official_protocol``, ``calculate_FID``,
+   ``compute_lpips``, the three diversity scorers) against the streams'
+   values (``SCORER_TOL``). Then the eval's wall time and clips/s for each
+   body and its stages, each timed alone.
    4d. Stage-2 training at the full BAIR preset: the trainer's ``train``
    (``configs/stage2/bair_config.yaml``'s Training and Data: bs 50, amsgrad,
    the train augment) over synthetic train and eval splits of 100 and 40
@@ -127,6 +131,26 @@ Phases (any failure raises and the script exits non-zero):
    every decoder weight but ``G_linear`` from it, and one AE step on the
    card gives finite losses. Prints each conversion's wall time and the
    converted model's bf16 ``Model.forward`` latency by ``StepTimer``.
+   4i. Stage-2 training from cached posteriors: phase 4d's splits (their
+   FrameStores reopened: 100 clips, 1,400 windows) and Training section with
+   ``Data.aug: false`` and ``Training.cache_posteriors: true``; the train
+   loader reads one frame a clip with its (index, start). Checks: the trainer
+   refuses the cache with the augmentation on; ``build_cache`` in fp32 and
+   with the bf16 encoder against the encoder's direct forward of every window
+   of 6 clips (``CACHE_ROW_TOL``; another clip's windows further apart than
+   that, ``CACHE_SEPARATION``); the lean loader's frame and meta against the
+   full loader's; one cached step against one uncached step from the same
+   flow, batch and draws, in fp32 and bf16 (the loss terms,
+   ``CACHED_LOSS_TOL``; the flow's weights within two Adam steps). Then the
+   trainer's ``train`` with the cache (2 epochs of 2 steps, validation,
+   prior FVD, checkpoints) and ``cINN_latest.msgpack`` served by
+   ``Model.from_configs``, in one counted window (one forward chain per
+   validation batch, one reverse chain per prior-FVD batch and one serving):
+   losses finite, the served flow the trained one bitwise, its video finite
+   in [-1, 1] and z against the plain chain. Then the cache build's time and
+   windows/s (fp32, bf16), the cached and the uncached step at bs 50 with aug
+   off (fp32, bf16; each with its copy from the host), and the bytes each
+   copies from the host.
 5. Timings: each kernel's median ms beside its plain version and its bound;
    the reverse chain at B = 1, 6 and 16; where a chain's time goes, from the
    timeline build (per layer and pass, and the kernel's own span), and a
@@ -139,14 +163,14 @@ Phases (any failure raises and the script exits non-zero):
    power limit.
 6. ``torch.profiler`` traces of two bf16 ``Model.forward`` calls, of two
    bf16 landscape ``Model.transfer`` calls, of two synthesis-eval steps
-   (sample a batch, all four backbones), of two stage-2 training steps, of
-   two stage-1 training steps and of two stage-2 AE training steps (device
-   time by stage span): the top device kernels, the flow
+   (sample a batch, all four backbones), of two stage-2 training steps, of two
+   cached stage-2 training steps, of two stage-1 training steps and of two
+   stage-2 AE training steps (device time by stage span): the top device kernels, the flow
    chain's share, the device's idle share, and the host and device time
    before the first flow chain (the embedder; in transfer, the encoder and
    the query's embedding). The traces are written to ``smoke_out/`` (listed
    in ``.gitignore``).
-7. A ``{"kernels": [...]}`` line (launches summed over the nine counted
+7. A ``{"kernels": [...]}`` line (launches summed over the ten counted
    windows), then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is visible, and when the
@@ -199,6 +223,9 @@ BAIR_FRAMES, BAIR_PX = 30, 64
 BACKBONE_TOL = 1e-4
 # the stream's Fréchet values against activations taken at another batch size
 BATCHING_TOL = 1e-6
+# the materialised scorers against the streams on the same clips (relative), as
+# tests/test_torch_port_eval.py holds the streams to the JAX package's
+SCORER_TOL = {"frechet": 1e-4, "distance": 1e-5}
 # phase 4d, stage-2 training at the BAIR preset: the Training and Data
 # sections of configs/stage2/bair_config.yaml (copied here: the card's machine
 # may have no YAML reader), its 30 loader workers cut to the machine's 8
@@ -800,6 +827,14 @@ def phase_eval(card: str, models, tmp: Path):
     # -- diversity: bf16 decoder ---------------------------------------------
     dstream = se.DiversityStream(N_REALIZ, want_vgg=True, want_i3d=True, want_dti3d=True,
                                  seq_length=EVAL_SEQ, weights_root=root, device=DEVICE)
+    stacks = []
+    d_add_batch = dstream.add_batch
+
+    def keep_stack(stack):  # the realisations, for the materialised scorers
+        stacks.append(stack.clone())
+        d_add_batch(stack)
+
+    dstream.add_batch = keep_stack
     div, d_wall, d_launches, d_dev = eval_window(
         "diversity", lambda: eval_diversity.evaluate(models["bfloat16"], loaders["diversity"],
                                                      dstream, N_REALIZ),
@@ -869,6 +904,54 @@ def phase_eval(card: str, models, tmp: Path):
             f"{rel:.3e} (bound {BATCHING_TOL:g}) {'ok' if rel <= BATCHING_TOL else 'FAIL'}")
         if rel > BATCHING_TOL:
             raise AssertionError(f"{name} depends on the batch size")
+    dstream.add_batch = d_add_batch
+
+    # the materialised scorers over the same clips, with the streams' populations
+    from image2video_synthesis_using_cinns_tpu_torch.metrics import diversity
+
+    stack_all = torch.cat(stacks)
+    fvd_n = n // 16 * 16
+    ff_all, rf_all = fake_all.flatten(0, 1), real_all.flatten(0, 1)
+    scorers = {
+        "FVD calculate_FVD (kinetics, batches of 16)": (
+            lambda: fvd.calculate_FVD(kin, fake_all[:fvd_n], real_all[:fvd_n], 16),
+            synth["FVD"], SCORER_TOL["frechet"]),
+        "FVD compute_fvd_official_protocol": (
+            lambda: fvd.compute_fvd_official_protocol(
+                fake_all[:fvd_n].reshape((-1, 16) + fake_all.shape[1:]),
+                real_all[:fvd_n].reshape((-1, 16) + real_all.shape[1:]), root, DEVICE),
+            synth["FVD"], SCORER_TOL["frechet"]),
+        "DTFVD calculate_FVD (dt16, batches of 40)": (
+            lambda: fvd.calculate_FVD(i3d["dt16"][0], fake_all, real_all, 40),
+            synth["DTFVD"], SCORER_TOL["frechet"]),
+        "FID calculate_FID": (
+            lambda: fid.calculate_FID(stream.inception, ff_all, rf_all)[0], synth["FID"],
+            SCORER_TOL["frechet"]),
+        "LPIPS compute_lpips": (
+            lambda: lpips_eval.compute_lpips(ff_all, rf_all, 10, root, DEVICE), synth["LPIPS"],
+            SCORER_TOL["distance"]),
+        "VGG compute_vgg_diversity": (
+            lambda: diversity.compute_vgg_diversity(stack_all, device=DEVICE), div["VGG"],
+            SCORER_TOL["distance"]),
+        "I3D compute_I3D_diversity": (
+            lambda: diversity.compute_I3D_diversity(stack_all, N_REALIZ, root, DEVICE),
+            div["I3D"], SCORER_TOL["distance"]),
+        "DTI3D compute_DTI3D_diversity": (
+            lambda: diversity.compute_DTI3D_diversity(stack_all, root, DEVICE), div["DTI3D"],
+            SCORER_TOL["distance"]),
+    }
+    for name, (score, want, tol) in scorers.items():
+        t0 = time.perf_counter()
+        got = score()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        rel = abs(got - want) / abs(want)
+        ok = np.isfinite(got) and rel <= tol
+        log(f"  [{card}] materialised {name}: {got:.10g} in {took:.3f} s; the stream's "
+            f"{want:.10g}: rel {rel:.3e} (bound {tol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with the stream")
+    del stacks, stack_all
 
     # -- stage times, each alone ---------------------------------------------
     augment = build_augment(BAIR_PX, None, False, False)
@@ -2256,6 +2339,300 @@ def phase_reference(card: str, tmp: Path):
     return launches, device_launches
 
 
+# phase 4i, stage-2 training from the posterior cache at the BAIR preset:
+# phase 4d's splits and Training section with Data.aug off and
+# Training.cache_posteriors on (100 clips of 30 frames: 1,400 windows of 17)
+CACHE_CHECK_CLIPS = 6  # clips whose every window is encoded directly against its cache rows
+# a cache row against the same encoder's direct forward of its window, over
+# the rows' largest magnitude: cuDNN sums in another order at another batch
+# (fp32, TF32 off), and in bf16 a rounding point moved by that order moves
+# a layer's output by one bf16 step; CACHE_SEPARATION: the next clip's rows
+# must differ from a clip's direct forward by at least this many times the
+# bound, so that the check would see rows taken from another video (windows
+# of one clip may be equal: the synthetic square stands still in some clips)
+CACHE_ROW_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+CACHE_SEPARATION = 3.0
+# one cached step against one uncached step from the same flow, batch and
+# draws: each loss term over the scale of the two terms (the NLL and the
+# log-determinant; the loss is their difference), and the flow's weights
+# after the step within two Adam steps (a first step moves a weight by lr
+# times the sign of its gradient, which a rounding difference may flip) plus
+# 1e-6 of the largest weight
+CACHED_LOSS_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+CACHED_SPANS = ("stage2/posterior_cache", "stage2/embedder", "stage2/flow", "stage2/optimizer")
+
+
+def phase_train_cached(card: str, tmp: Path, weights_root: str):
+    """Stage-2 training from cached posteriors at the full BAIR preset, over
+    phase 4d's splits (its FrameStores reopened): the refusal with the
+    augmentation on; the cache in fp32 and bf16 against the encoder's direct
+    forward; one cached step against one uncached step; the trainer's
+    ``train`` with ``cache_posteriors`` in its own counted window (one
+    forward chain per validation batch, one reverse chain per prior-FVD
+    batch and one more serving ``cINN_latest``); then the build's and the
+    steps' times and the bytes each step copies from the host."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.config import Config
+    from image2video_synthesis_using_cinns_tpu_torch.data import get_loader
+    from image2video_synthesis_using_cinns_tpu_torch.data.augment import build_augment
+    from image2video_synthesis_using_cinns_tpu_torch.data.framestore import FrameStore
+    from image2video_synthesis_using_cinns_tpu_torch.data.loader import Loader
+    from image2video_synthesis_using_cinns_tpu_torch.data.registry import augment_params
+    from image2video_synthesis_using_cinns_tpu_torch.models.facade import Model
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
+    from image2video_synthesis_using_cinns_tpu_torch.testing import configs
+    from image2video_synthesis_using_cinns_tpu_torch.train import optim, stage2
+    from image2video_synthesis_using_cinns_tpu_torch.train.posterior_cache import (
+        WindowIndex,
+        build_cache,
+        make_clip_reader,
+    )
+    from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint, convert
+
+    t0 = time.perf_counter()
+    opt, config1, ae = configs(PRESET)
+    opt.Training = Config(dict(TRAIN_CONFIG, save_path=str(tmp / "runs_cached"),
+                               cache_posteriors=True))
+    opt.Data = Config(dict(TRAIN_DATA, data_path=str(tmp / "bair_train") + "/", aug=False))
+    opt.Logging = Config({"mode": "disabled"})
+    tr = opt.Training
+    T, img, z = opt.Data["sequence_length"], opt.Data["img_size"], config1.Decoder["z_dim"]
+    ds = {mode: get_loader("BAIR")(opt, mode) for mode in ("train", "eval")}
+    stores = {mode: FrameStore(str(tmp / f"train_{mode}.fst")) for mode in ds}  # phase 4d's
+    lean = Loader(ds["train"], tr["bs"], workers=TRAIN_WORKERS, drop_last=False, seed=42,
+                  framestore=stores["train"], frames_per_item=1, with_meta=True)
+    full = Loader(ds["train"], tr["bs"], workers=TRAIN_WORKERS, drop_last=False, seed=42,
+                  framestore=stores["train"], with_meta=True)
+    eval_loader = Loader(ds["eval"], tr["bs_eval"], workers=TRAIN_WORKERS, drop_last=False,
+                         seed=43, framestore=stores["eval"])
+    models = stage2.build_models_from_configs(opt, config1, ae, seed=0)
+    windex = WindowIndex(ds["train"], T)
+    n_eval = len(eval_loader)
+    log(f"  set-up {time.perf_counter() - t0:.2f} s: phase 4d's splits ({len(ds['train'])} and "
+        f"{len(ds['eval'])} clips, {windex.n_windows} train windows of {T}), Data.aug off, "
+        "full-size random models built")
+
+    # -- the refusal -----------------------------------------------------------------
+    opt_aug = copy.deepcopy(opt)
+    opt_aug.Data["aug"] = True
+    try:
+        stage2.train(opt_aug, models, lean, eval_loader, device=DEVICE)
+    except ValueError as e:
+        log(f"  cache_posteriors with Data.aug on refused: ValueError({str(e)[:70]}...) ok")
+    else:
+        raise AssertionError("cached training: cache_posteriors with Data.aug on was not refused")
+
+    # -- the cache against the encoder's direct forward ---------------------------------
+    encoder = models.encoder.to(DEVICE).eval().requires_grad_(False)
+    encoders = {"float32": encoder, "bfloat16": copy.deepcopy(encoder).to(torch.bfloat16)}
+    params_aug, random_crop, _ = augment_params(opt, "train")
+    aug = build_augment(img, params_aug, random_crop, False)  # what aug off trains on
+    reader = make_clip_reader(ds["train"], stores["train"], TRAIN_WORKERS)
+    caches, build_s = {}, {}
+    for dt, enc in encoders.items():
+        for _ in range(2):  # the first builds cuDNN's plans; the second is timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            caches[dt] = build_cache(enc, ds["train"], T, aug, reader,
+                                     videos_per_dispatch=int(tr.get("cache_videos_per_dispatch",
+                                                                    32)))
+            torch.cuda.synchronize()
+            build_s[dt] = time.perf_counter() - t0
+        cache = caches[dt]
+        log(f"  [{card}] build_cache {dt} encoder: {windex.n_windows} windows x 2 x {z} fp32 "
+            f"({cache.numel() * 4 / 1e6:.3f} MB on the card) in {build_s[dt]:.3f} s, "
+            f"{windex.n_windows / build_s[dt]:.1f} windows/s (the second of two builds)")
+        errs, gaps, previous = [], [], None
+        for v in range(CACHE_CHECK_CLIPS):
+            clip = aug(torch.from_numpy(reader([v], BAIR_FRAMES)).to(DEVICE))[0]
+            n_w = BAIR_FRAMES - T + 1
+            wins = torch.stack([clip[s + 1:s + T] for s in range(n_w)]).permute(0, 4, 1, 2, 3)
+            with torch.no_grad():
+                direct = torch.stack(enc.moments(wins.to(next(enc.parameters()).dtype)), 1).float()
+            rows = cache[windex.offsets[v]:windex.offsets[v + 1]]
+            scale = float(direct.abs().max())
+            errs.append(float((rows - direct).abs().max()) / scale)
+            if previous is not None:  # this clip's rows against the previous clip's forward
+                gaps.append(float((rows - previous).abs().flatten(1).amax(1).min()) / scale)
+            previous = direct
+        err, gap = max(errs), min(gaps)
+        ok = err <= CACHE_ROW_TOL[dt] and gap >= CACHE_SEPARATION * CACHE_ROW_TOL[dt]
+        log(f"  cache rows vs the {dt} encoder's direct forward, every window of "
+            f"{CACHE_CHECK_CLIPS} clips ({n_w} a clip in one batch): worst over the rows' largest "
+            f"{err:.3e} (bound {CACHE_ROW_TOL[dt]:g}); each row against the previous clip's "
+            f"window at its start at least {gap:.3e} (must exceed {CACHE_SEPARATION:g} x the "
+            f"bound) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"cached training: the {dt} cache disagrees with the encoder")
+
+    # -- one cached step against one uncached step ----------------------------------------
+    fb, lb = first_batch(full), first_batch(lean)
+    for key in ("index", "start"):
+        if not np.array_equal(fb[key], lb[key]):
+            raise AssertionError(f"cached training: the lean loader's {key} is not the full one's")
+    if not np.array_equal(fb["seq_raw"][:, :1], lb["seq_raw"]):
+        raise AssertionError("cached training: the lean loader's frame is not the window's first")
+    n = lb["seq_raw"].shape[0]
+    wids_np = windex.ids(ds["train"], lb["index"], lb["start"])
+    seq = aug(torch.from_numpy(fb["seq_raw"]).to(DEVICE))
+    seq1 = aug(torch.from_numpy(lb["seq_raw"]).to(DEVICE))
+    cond = stage2.conditioning(seq1, None)
+    wids = torch.from_numpy(wids_np).to(DEVICE)
+    draws = stage2.Draws(7)
+    eps = draws.normal("posterior", 0, 0, 0, (n, z))
+    ref = draws.normal("reference", 0, 0, 0, (n, z))
+    base = copy.deepcopy(models.network).to(DEVICE).eval()  # the trainer's run starts afresh
+    base.embedder.requires_grad_(False)
+    with torch.no_grad():
+        base.init_actnorm(stage2.posterior(encoder, seq, draws.normal("actnorm", 0, 0, 0,
+                                                                      (n, z))), cond)
+
+    def fresh():
+        net = copy.deepcopy(base)
+        return net, optim.adam_torch(list(net.flow.parameters()), tr["lr"],
+                                     betas=(tr["beta1"], tr["beta2"]),
+                                     weight_decay=tr["weight_decay"], amsgrad=bool(tr["amsgrad"]))
+
+    w0 = [p.detach().clone() for p in base.flow.parameters()]
+    for dt, enc in encoders.items():
+        mp = torch.bfloat16 if dt == "bfloat16" else None
+        (net_u, opt_u), (net_c, opt_c) = fresh(), fresh()
+        aux_u = stage2.train_step(net_u, opt_u, enc, seq, cond, eps, ref)
+        aux_c = stage2.cached_train_step(net_c, opt_c, caches[dt], wids, cond, eps, ref, mp)
+        scale = abs(float(aux_u["nll_loss"])) + abs(float(aux_u["nlogdet_loss"]))
+        worst = max(abs(float(aux_c[k]) - float(aux_u[k])) / scale
+                    for k in ("Loss", "nll_loss", "nlogdet_loss", "reference_nll_loss"))
+        pu, pc = list(net_u.flow.parameters()), list(net_c.flow.parameters())
+        w_err = max(float((a - b).detach().abs().max()) for a, b in zip(pc, pu))
+        w_max = max(float(b.detach().abs().max()) for b in pu)
+        w_bound = 2 * tr["lr"] + 1e-6 * w_max
+        flipped = sum(int(((a - b).abs() > tr["lr"]).sum()) for a, b in zip(pc, pu))
+        moved = sum(int((a != w).sum()) for a, w in zip(pu, w0))
+        ok = worst <= CACHED_LOSS_TOL[dt] and w_err <= w_bound
+        log(f"  cached step vs uncached step, {dt} encoder, bs={n}, the same flow, batch and "
+            f"draws: Loss {float(aux_c['Loss']):.8g} vs {float(aux_u['Loss']):.8g}, worst term "
+            f"over the terms' scale {worst:.3e} (bound {CACHED_LOSS_TOL[dt]:g}); the flow's "
+            f"weights after the step {w_err:.3e} apart (bound 2 lr + 1e-6 max|w| = "
+            f"{w_bound:.3e}; {flipped} of {moved} moved weights a step of opposite sign) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"cached training: the {dt} cached step disagrees with the "
+                                 "uncached one")
+        del net_u, net_c, opt_u, opt_c
+
+    # -- the trainer, in its counted window, and its checkpoint served -------------------------
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = stage2.train(opt, models, lean, eval_loader, device=DEVICE, weights_root=weights_root)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    payload = checkpoint.load(str(Path(out["save_path"]) / "cINN_latest.msgpack"))
+    serving_cfg = configs(PRESET)[0]
+    server = Model.from_configs(serving_cfg, config1, ae, EVAL_SEQ, device=DEVICE, state_dicts={
+        "decoder": models.decoder.state_dict(),
+        "flow": convert.to_state_dict(payload["state_dict"])})
+    x0 = seq1[:BATCH, 0].permute(0, 3, 1, 2).contiguous()
+    residual = torch.randn((BATCH, z), generator=torch.Generator().manual_seed(5)).to(DEVICE)
+    with torch.no_grad():
+        video, z_served = server.sample(x0, residual=residual)
+    torch.cuda.synchronize()
+    launches, device_launches = dict(fk.launches), dict(fk.device_launches)
+    log(f"  cached training and serving chain launches: {launches}; device kernels they "
+        f"launched: {device_launches}")
+    want = {"flow_reverse_fused": TRAIN_EPOCHS * n_eval + 1,
+            "flow_forward_fused": TRAIN_EPOCHS * n_eval}
+    if launches != want:
+        raise AssertionError(f"cached training: chain launches {launches}, expected {want}")
+    if device_launches != launches:
+        raise AssertionError("cached training: a chain launched other than one device kernel")
+    log(f"  [{card}] stage2.train cache_posteriors bair bs={tr['bs']} bs_eval={tr['bs_eval']}, "
+        f"{TRAIN_EPOCHS} epochs of {len(lean)} steps with the cache build, the ActNorm init, "
+        f"validation, prior FVD and checkpoints: {wall:.3f} s; {out['global_step']} steps; "
+        f"train {out['train_loss']}, eval {out['eval_loss']}, PFVD {out['PFVD']}")
+    values = [*out["train_loss"], *out["eval_loss"], out["PFVD"]]
+    if not all(np.isfinite(v) for v in values):
+        raise AssertionError(f"cached training: a loss or the prior FVD is not finite: {values}")
+    log("  every loss and the prior FVD finite")
+    served = dict(server.flow.flow.named_parameters())
+    for name, p in models.network.flow.named_parameters():
+        if not torch.equal(served[name], p):
+            raise AssertionError(f"cached training: the served {name} is not the trained one")
+    log(f"  cINN_latest.msgpack (epoch {payload['epoch']}) in Model.from_configs: every flow "
+        "weight equal to the trained one")
+    check_video(f"cached training: served video bs={BATCH}", video,
+                (BATCH, EVAL_SEQ, 3, img, img))
+    with torch.no_grad():
+        z_ref = fk.flow_reverse_fused_ref(server.flow.flow.packed, residual,
+                                          server.flow.embed([x0]))
+    check("cached training: served z vs plain", z_served, z_ref, TOL["bf16"])
+    del server, payload, video
+
+    # -- timings: the cached and the uncached step, with the batch's copy from the host -------
+    # the four steps in turns (the order reversed every round), so that a drift of the
+    # host's speed during the phase reaches each alike
+    lean_np = np.ascontiguousarray(lb["seq_raw"])
+    full_np = np.ascontiguousarray(fb["seq_raw"])
+    variants = {}
+    for dt, enc in encoders.items():
+        mp = torch.bfloat16 if dt == "bfloat16" else None
+        net_u, opt_u = fresh()
+        net_c, opt_c = fresh()
+
+        def uncached(enc=enc, net=net_u, o=opt_u):
+            s = aug(torch.from_numpy(full_np).to(DEVICE))
+            stage2.train_step(net, o, enc, s, stage2.conditioning(s, None), eps, ref)
+
+        def cached(mp=mp, net=net_c, o=opt_c, moments=caches[dt]):
+            s = aug(torch.from_numpy(lean_np).to(DEVICE))
+            w = torch.from_numpy(wids_np).to(DEVICE)
+            stage2.cached_train_step(net, o, moments, w, stage2.conditioning(s, None), eps, ref,
+                                     mp)
+
+        variants["uncached", dt], variants["cached", dt] = uncached, cached
+        if dt == "float32":
+            traced_net, traced_opt, traced_cache = net_c, opt_c, caches[dt]
+    for fn in variants.values():
+        fn()
+        fn()
+    torch.cuda.synchronize()
+    lat = {k: [] for k in variants}
+    for r in range(7):
+        for k in (list(variants) if r % 2 == 0 else list(variants)[::-1]):
+            t0 = time.perf_counter()
+            variants[k]()
+            torch.cuda.synchronize()
+            lat[k].append((time.perf_counter() - t0) * 1e3)
+    for dt in encoders:
+        u, c = statistics.median(lat["uncached", dt]), statistics.median(lat["cached", dt])
+        wins = sum(a < b for a, b in zip(lat["cached", dt], lat["uncached", dt]))
+        log(f"  [{card}] step bs={n} {dt} encoder, Data.aug off (copy from the host, augment, "
+            f"posterior, embedder, flow forward and backward, Adam; median of 7 after 2 "
+            f"warm-ups, the four steps in turns): uncached {u:.3f} ms, cached {c:.3f} ms "
+            f"({u / c:.3f}x; the cached one faster in {wins} of 7 rounds); uncached "
+            + " ".join(f"{v:.1f}" for v in lat["uncached", dt]) + ", cached "
+            + " ".join(f"{v:.1f}" for v in lat["cached", dt]))
+    log(f"  host-to-card bytes a step: uncached {full_np.nbytes} (uint8 clips "
+        f"{tuple(full_np.shape)}), cached {lean_np.nbytes + wids_np.nbytes} (one frame "
+        f"{tuple(lean_np.shape)} and {wids_np.size} int32 window ids): "
+        f"{full_np.nbytes / (lean_np.nbytes + wids_np.nbytes):.2f}x fewer")
+    for store in stores.values():
+        store.close()
+
+    def traced_step():  # phase_trace runs its calls under no_grad; a step needs autograd
+        with torch.enable_grad():
+            s = aug(torch.from_numpy(lean_np).to(DEVICE))
+            stage2.cached_train_step(traced_net, traced_opt, traced_cache,
+                                     torch.from_numpy(wids_np).to(DEVICE),
+                                     stage2.conditioning(s, None), eps, ref)
+
+    return launches, device_launches, traced_step
+
+
 def _timeline_library(lib):
     from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
 
@@ -2640,7 +3017,12 @@ def main() -> int:
         log("== 4h. the reference's checkpoints (BAIR preset, converted and served)")
         t0 = time.perf_counter()
         ref_launches, ref_device_launches = phase_reference(card, Path(tmp))
-    log(f"  phase 4h took {time.perf_counter() - t0:.2f} s")
+        log(f"  phase 4h took {time.perf_counter() - t0:.2f} s")
+        log("== 4i. stage-2 training from cached posteriors (BAIR preset, 4d's splits)")
+        t0 = time.perf_counter()
+        c_launches, c_device_launches, cached_train_step = phase_train_cached(
+            card, Path(tmp), str(Path(tmp) / "models"))
+    log(f"  phase 4i took {time.perf_counter() - t0:.2f} s")
 
     log("== 5. timings")
     rows = phase_timings(card, models, x0, residual)
@@ -2660,6 +3042,8 @@ def main() -> int:
                 "trace_eval_synthesis_step.json", "embedder, input")
     phase_trace(card, "stage-2 train step bs=50 fp32", train_step, "trace_train_step.json",
                 "no chain in a step", spans=TRAIN_SPANS)
+    phase_trace(card, "stage-2 cached train step bs=50 fp32", cached_train_step,
+                "trace_train_cached_step.json", "no chain in a step", spans=CACHED_SPANS)
     phase_trace(card, "stage-1 train step bs=10 fp32", s1_train_step,
                 "trace_train_stage1_step.json", "no chain in a step", spans=S1_SPANS)
     phase_trace(card, "stage-2 AE train step bs=30 fp32", ae_train_step,
@@ -2667,7 +3051,7 @@ def main() -> int:
 
     # each kernel at the shape its path gives it, in that path's mode (bf16
     # weights): the reverse at the BAIR sampling path's B=6, E=64, the forward
-    # at the transfer's one query, B=1, E=128; launches over all nine windows;
+    # at the transfer's one query, B=1, E=128; launches over all ten windows;
     # beside them each in the training path's fp32-weight mode at B=10, E=64
     kernels = []
     for name, line, r, shape, err_key in (
@@ -2681,11 +3065,12 @@ def main() -> int:
             "replaces": f"{PALLAS_KERNEL}:{line}",
             "launches": (launches[name] + t_launches[name] + e_launches[name] + tr_launches[name]
                          + s1_launches[name] + ae_launches[name] + ep_launches[name]
-                         + ref_launches[name]),
+                         + ref_launches[name] + c_launches[name]),
             "device_launches": (device_launches[name] + t_device_launches[name]
                                 + e_device_launches[name] + tr_device_launches[name]
                                 + s1_device_launches[name] + ae_device_launches[name]
-                                + ep_device_launches[name] + ref_device_launches[name]),
+                                + ep_device_launches[name] + ref_device_launches[name]
+                                + c_device_launches[name]),
             "shape": f"{shape} hidden 512 20 blocks, bf16 weights",
             "max_abs_err": errs[err_key],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

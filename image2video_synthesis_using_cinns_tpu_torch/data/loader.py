@@ -8,9 +8,11 @@ IO with device work; augmentation runs on the batch's device
 streams as the JAX ``Loader``: the epoch's order from
 ``default_rng((seed, epoch))`` and each item's window from
 ``default_rng((seed, epoch, idx))``, so both loaders give the same batches
-bitwise. Multi-host sharding (``process_index``/``process_count``,
-``tail_multiple``) and the posterior-cache input mode (``frames_per_item``,
-``with_meta``) belong to later slices.
+bitwise. The posterior-cache input mode (``frames_per_item``,
+``with_meta``) reads only the first frames of each sampled window and ships
+the window's identity with the batch (``train/posterior_cache.py``).
+Multi-host sharding (``process_index``/``process_count``,
+``tail_multiple``) belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -45,16 +47,24 @@ class _Failed:
 
 
 class Loader:
-    """Iterate dicts: {'seq_raw': uint8 (B,T,H,W,3), 'cond': float32 (B,3)?}.
+    """Iterate dicts: {'seq_raw': uint8 (B,T,H,W,3), 'cond': float32 (B,3)?},
+    with ``with_meta`` also 'index' and 'start', int64 (B,).
 
     ``seed`` drives both shuffling and window sampling so epochs are
     reproducible; ``epoch_iter(epoch)`` reshuffles per epoch. A decode error
     in a worker is raised by the iterator.
+
+    ``frames_per_item`` reads only the first that many frames of each
+    sampled window (the posterior cache's conditioning frame): the window's
+    start is still drawn from the full window range, so each item sees the
+    same random stream as a full-window load of the same (seed, epoch,
+    index). ``with_meta`` adds each item's dataset index and window start.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, workers: int = 8, seed: int = 0,
-                 prefetch: int = 4, framestore=None):
+                 prefetch: int = 4, framestore=None, frames_per_item: int | None = None,
+                 with_meta: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -63,6 +73,8 @@ class Loader:
         self.seed = seed
         self.prefetch = prefetch
         self.framestore = framestore
+        self.frames_per_item = frames_per_item
+        self.with_meta = with_meta
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -71,11 +83,13 @@ class Loader:
 
     def _load_item(self, idx: int, rng: np.random.Generator):
         item = self.dataset.sample(idx, rng)
+        if self.frames_per_item is not None:  # the start was drawn from the full range
+            item = dict(item, paths=item["paths"][: self.frames_per_item])
         if self.framestore is not None:
             frames = self.framestore.read_window(item)
         else:
             frames = np.stack([_imread_rgb(p) for p in item["paths"]], axis=0)
-        return frames, item.get("cond")
+        return frames, item.get("cond"), item["index"], item["start"]
 
     def __iter__(self):
         return self.epoch_iter(0)
@@ -110,6 +124,9 @@ class Loader:
                         batch = {"seq_raw": np.stack([r[0] for r in results], axis=0)}
                         if results[0][1] is not None:
                             batch["cond"] = np.stack([r[1] for r in results], axis=0)
+                        if self.with_meta:
+                            batch["index"] = np.asarray([r[2] for r in results], np.int64)
+                            batch["start"] = np.asarray([r[3] for r in results], np.int64)
                         if not put(batch):
                             return
             except Exception as e:  # handed to the consumer, which raises it

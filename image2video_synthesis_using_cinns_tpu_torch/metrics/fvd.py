@@ -15,9 +15,10 @@ and dropped at load, as the JAX module ignores it). A missing file raises
 ``FileNotFoundError``: there is no random fallback.
 
 Videos are the port's layout, (N, T, C, H, W); activations come back as
-float32 rows. The materialised scoring functions (``calculate_FVD``,
-``compute_fvd_official_protocol``) are not ported: the eval CLIs stream
-(``streaming_eval.py``).
+float32 rows. The eval CLIs stream (``streaming_eval.py``); the
+materialised scorers ``calculate_FVD`` and ``compute_fvd_official_protocol``
+take whole sets of clips, which they hold in memory, and compute the same
+populations and values.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ..models.facade import resolve_device
 from ..ops.resize import resize_bilinear_align_corners
 from ..utils import checkpoint as ckpt_io
 from ..utils import convert
+from .frechet import frechet_from_activations
 
 
 class I3DModel(NamedTuple):
@@ -121,3 +123,35 @@ def get_activations(model: I3DModel, videos, batch_size: int,
     outs = [run(torch.as_tensor(videos[i * bs : (i + 1) * bs])).cpu().numpy()
             for i in range(n // bs)]
     return np.concatenate(outs, axis=0)
+
+
+def _prep_dt(videos, length: int) -> torch.Tensor:
+    """A whole set's DT clips: ``prep_dt_time`` on (N, T, C, H, W)."""
+    return prep_dt_time(torch.as_tensor(videos), length)
+
+
+def calculate_FVD(model: I3DModel, data_gen, data_orig, batch_size: int,
+                  input_range: tuple[float, float] = (-1.0, 1.0)) -> float:
+    """The Fréchet distance of two sets of clips (N, T, C, H, W), tensors on
+    any device or numpy arrays with values in ``input_range`` (pass (0, 1)
+    for clips already in [0, 1]), held in memory whole. The DT nets take
+    their clips through ``_prep_dt``; each set's ``N % batch_size`` trailing
+    clips are dropped (``get_activations``)."""
+    if model.kind in ("dt16", "dt32"):
+        length = 16 if model.kind == "dt16" else 32
+        data_gen, data_orig = _prep_dt(data_gen, length), _prep_dt(data_orig, length)
+    act1 = get_activations(model, data_gen, batch_size, input_range)
+    act2 = get_activations(model, data_orig, batch_size, input_range)
+    return frechet_from_activations(act1, act2)
+
+
+def compute_fvd_official_protocol(seq_fake, seq_real, weights_root: str = "models",
+                                  device=None) -> float:
+    """FVD of the grouped (G, 16, T, C, H, W) sets the eval CLI builds,
+    flattened and scored by the kinetics I3D in batches of 16, as the JAX
+    package replaces the reference's TF1 official-FVD script. The score
+    equals the official FVD only with weights converted from the TF-hub
+    module (``cli/convert_weights.py i3d_tf``)."""
+    model = load_model("kinetics", weights_root, device)
+    f, r = torch.as_tensor(seq_fake), torch.as_tensor(seq_real)
+    return calculate_FVD(model, f.flatten(0, 1), r.flatten(0, 1), batch_size=16)

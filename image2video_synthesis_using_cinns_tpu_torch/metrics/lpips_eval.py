@@ -1,5 +1,6 @@
 """LPIPS for the offline evaluation (port of ``metrics/lpips_eval.py``): the
-VGG flavour, scored in batches of 10 frame pairs by ``streaming_eval.py``.
+VGG flavour, scored in batches of 10 frame pairs by ``streaming_eval.py``
+or, over two whole sets of frames held in memory, by ``compute_lpips``.
 
 ``load_lpips`` reads ``<weights_root>/lpips/vgg_lpips.msgpack`` (a variables
 tree of the JAX package's ``LPIPS``, which ``python -m
@@ -9,7 +10,7 @@ Without it the module runs with random
 weights, as the JAX package's does, so pipelines and timings work offline;
 the port draws them from its own fixed torch seed (``RANDOM_INIT_SEED``),
 which cannot reproduce JAX's ``PRNGKey(0)`` draw, so the two random LPIPS
-differ (ROADMAP §C). The materialised ``compute_lpips`` is not ported.
+differ (ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -38,3 +39,21 @@ def load_lpips(weights_root: str = "models", device=None, path: str | None = Non
     if path is not None:
         convert.load_checkpoint(module, path)
     return module.to(resolve_device(device)).eval()
+
+
+@torch.inference_mode()
+def compute_lpips(pd_imgs, gt_imgs, batch_size: int = 10, weights_root: str = "models",
+                  device=None) -> float:
+    """The mean over whole batches of ``batch_size`` frame pairs (N, C, H, W)
+    in [-1, 1] of each batch's mean distance; the ``N % batch_size``
+    trailing pairs are dropped, as in the reference."""
+    dev = resolve_device(device)
+    module = load_lpips(weights_root, dev)
+    n_batches = pd_imgs.shape[0] // batch_size
+    total = 0.0
+    for i in range(n_batches):
+        sl = slice(i * batch_size, (i + 1) * batch_size)
+        pd = torch.as_tensor(pd_imgs[sl]).to(dev, torch.float32)
+        gt = torch.as_tensor(gt_imgs[sl]).to(dev, torch.float32)
+        total += float(module(pd, gt).mean())
+    return total / max(n_batches, 1)

@@ -176,17 +176,21 @@ class Encoder(nn.Module):
                    stride_t=tuple(dic["stride_t"]), use_max_pool=bool(dic["use_max_pool"]),
                    trainable=trainable)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
-                noise: torch.Tensor | None = None):
-        """``noise`` injects eps (parity tests); otherwise eps ~ N(0, I) is drawn
-        in float32 from ``generator``."""
+    def moments(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mu, logvar), each (B, z_dim), of video ``x`` (B, 3, T, H, W)."""
         emb = self.backbone(x)[-1]
         if emb.shape[2] != 1:
             raise ValueError(f"the backbone left {emb.shape[2]} time steps, not 1: the clip "
                              "length does not match the encoder's temporal strides")
         emb = emb.squeeze(2)  # (B, C, 4, 4)
-        mu = self.conv_mu(emb).reshape(emb.shape[0], -1)
-        logvar = self.conv_var(emb).reshape(emb.shape[0], -1)
+        return (self.conv_mu(emb).reshape(emb.shape[0], -1),
+                self.conv_var(emb).reshape(emb.shape[0], -1))
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                noise: torch.Tensor | None = None):
+        """``noise`` injects eps (parity tests); otherwise eps ~ N(0, I) is drawn
+        in float32 from ``generator``."""
+        mu, logvar = self.moments(x)
         if noise is None:
             noise = torch.randn(logvar.shape, generator=generator, dtype=torch.float32,
                                 device=logvar.device)

@@ -19,6 +19,14 @@ embedder's start-frame embedding.
   pack of the weights, which is refreshed after every change to them. Without
   I3D weights the FVD is dropped with one warning and the best checkpoint
   follows the eval loss (its gate moves from 999 to inf).
+* ``Training.cache_posteriors`` (needs ``Data.aug: false``): before the
+  first epoch the encoder's moments of every window of the train split are
+  encoded once (``posterior_cache.py``); a cached step gathers its batch's
+  rows by window id and resamples them with the step's eps instead of
+  running the encoder, so the train loader reads one frame a clip and the
+  window's (index, start). The ActNorm init resamples the cached moments in
+  fp32 (under bf16 they came from the bf16 encoder, as in the JAX package).
+  Validation and the prior FVD read full windows, as without the cache.
 * ``cINN.msgpack`` (best) and ``cINN_latest.msgpack`` (every epoch) in the
   JAX package's format, written on a background thread; resume from
   ``Training.reload_path`` (the LR schedule replayed, no ActNorm init);
@@ -31,12 +39,14 @@ and batch, so a resumed run draws what an uninterrupted one would, and the
 card and the CPU see the same numbers. Tests subclass it to inject the JAX
 package's draws. ``Training.steps_per_dispatch`` (the JAX package's scan
 chunks, a TPU dispatch mechanism whose steps equal single steps) is ignored:
-the port runs single steps. ``Training.distributed`` and
-``Training.cache_posteriors`` raise ``NotImplementedError``.
+the port runs single steps. ``Training.distributed`` raises
+``NotImplementedError``.
 
 ``train`` runs a built set of modules over given loaders (``chip_smoke.py``
-calls it with in-memory models); ``main`` loads everything from disk and
-calls it. On a CUDA device TF32 is turned off, so that fp32 means fp32.
+calls it with in-memory models; the cache reads the train loader's
+``dataset`` and ``framestore``, and a cached run needs a loader
+``with_meta``); ``main`` loads everything from disk and calls it. On a CUDA
+device TF32 is turned off, so that fp32 means fp32.
 """
 
 from __future__ import annotations
@@ -70,6 +80,7 @@ from ..utils.logging import CSVlogger, Logging, WandbSink
 from ..utils.preemption import PreemptionGuard, maybe_enable_debug_nans
 from .fvd_eval import evaluate_FVD_prior
 from .optim import LRController, adam_torch, get_lr, load_optax_state, optax_state, set_lr
+from .posterior_cache import WindowIndex, build_cache, make_clip_reader, resample_posterior
 
 LOGGING_KEYS = ["Loss", "reference_nll_loss", "nlogdet_loss", "nll_loss", "PFVD"]
 
@@ -167,12 +178,35 @@ def conditioning(seq: torch.Tensor, cond_pos: torch.Tensor | None) -> list[torch
     return [x0] if cond_pos is None else [x0, cond_pos]
 
 
+def cached_posterior(moments: torch.Tensor, wids: torch.Tensor, eps: torch.Tensor,
+                     dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The posterior sample of windows ``wids`` from the cache ``moments``
+    (n_windows, 2, z), with eps ``eps`` (B, z) drawn in fp32, computed in
+    ``dtype`` (the step encoder's) as ``posterior`` computes it: (B, z) fp32."""
+    mom = moments.index_select(0, wids.to(moments.device))
+    return resample_posterior(mom[:, 0], mom[:, 1], eps, dtype)
+
+
 def train_step(network: SupervisedTransformer, optimizer, encoder: Encoder, seq, cond,
                eps: torch.Tensor, ref: torch.Tensor) -> dict:
     """One optimisation step of the flow; returns the loss terms (detached).
     The spans name the stages for a profiler's trace."""
     with record_function("stage2/posterior"):
         post = posterior(encoder, seq, eps)
+    return _flow_step(network, optimizer, post, cond, ref)
+
+
+def cached_train_step(network: SupervisedTransformer, optimizer, moments: torch.Tensor,
+                      wids: torch.Tensor, cond, eps: torch.Tensor, ref: torch.Tensor,
+                      dtype: torch.dtype | None = None) -> dict:
+    """``train_step`` with the posterior resampled from the cache's rows
+    ``wids`` in place of the encoder's forward."""
+    with record_function("stage2/posterior_cache"):
+        post = cached_posterior(moments, wids, eps, dtype)
+    return _flow_step(network, optimizer, post, cond, ref)
+
+
+def _flow_step(network: SupervisedTransformer, optimizer, post, cond, ref) -> dict:
     with record_function("stage2/embedder"):
         emb = network.embed(cond)
     with record_function("stage2/flow"):
@@ -219,9 +253,12 @@ def _check_supported(opt) -> None:
     if tr.get("distributed"):
         raise NotImplementedError("Training.distributed: multi-host and data-parallel training "
                                   "are not ported yet (ROADMAP slice 10)")
-    if tr.get("cache_posteriors"):
-        raise NotImplementedError("Training.cache_posteriors: the posterior cache is not ported "
-                                  "yet (ROADMAP item 11b)")
+    if tr.get("cache_posteriors") and augment_params(opt, "train")[2]:
+        raise ValueError(
+            "Training.cache_posteriors requires Data.aug: false — cached (mu, logvar) are only "
+            "valid when the training frames are deterministic across epochs (the reference "
+            "re-augments every epoch; this opt-in lever trades augmentation for an encoder-free "
+            "step, see train/posterior_cache.py).")
 
 
 def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
@@ -247,6 +284,7 @@ def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
     network.embedder.requires_grad_(False)
     bf16 = str(tr.get("compute_dtype", "float32")) in ("bfloat16", "bf16")
     step_encoder = copy.deepcopy(encoder).to(torch.bfloat16) if bf16 else encoder
+    cache_dtype = torch.bfloat16 if bf16 else None
     names = [n for n, _ in network.flow.named_parameters()]
     optimizer = adam_torch([p for _, p in network.flow.named_parameters()], tr["lr"],
                            betas=(tr["beta1"], tr["beta2"]), weight_decay=tr["weight_decay"],
@@ -297,6 +335,22 @@ def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
             actnorm_done = True
     network.flow.pack_kernel_weights(torch.float32)
 
+    moments = windex = None
+    if tr.get("cache_posteriors"):
+        train_ds, seq_length = train_loader.dataset, opt.Data["sequence_length"]
+        windex = WindowIndex(train_ds, seq_length)
+        t_cache = time.time()
+        moments = build_cache(
+            step_encoder, train_ds, seq_length, aug_train,
+            make_clip_reader(train_ds, train_loader.framestore, tr["workers"]),
+            videos_per_dispatch=int(tr.get("cache_videos_per_dispatch", 32)))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        n_w, _, z_c = moments.shape
+        print(f"posterior cache: {n_w} windows x 2 x {z_c} fp32 ({n_w * 2 * z_c * 4 / 1e6:.1f} "
+              f"MB on {device}; oversampling dedup {windex.duplication:.1f}x) built in "
+              f"{time.time() - t_cache:.1f} s")
+
     dump_warned = []
 
     def warn_dump_once(e: Exception) -> None:
@@ -320,18 +374,27 @@ def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
             loss_track_train.reset()
             for i, batch in enumerate(train_loader.epoch_iter(epoch)):
                 n = batch["seq_raw"].shape[0]
-                seq, cond = batch_on_device(batch, aug_train, draws.augment(
-                    epoch, i, global_step, n, params_aug, random_crop))
+                if moments is None:
+                    seq, cond = batch_on_device(batch, aug_train, draws.augment(
+                        epoch, i, global_step, n, params_aug, random_crop))
+                else:  # the augment is deterministic: no draws
+                    seq, cond = batch_on_device(batch, aug_train)
+                    wids = _window_ids(windex, train_loader, batch, device)
                 if not actnorm_done:
-                    post = posterior(encoder, seq, draws.normal("actnorm", epoch, i, global_step,
-                                                                (n, z_dim)))
+                    eps0 = draws.normal("actnorm", epoch, i, global_step, (n, z_dim))
+                    post = (posterior(encoder, seq, eps0) if moments is None
+                            else cached_posterior(moments, wids, eps0))
                     network.init_actnorm(post, cond)
                     optimizer.reset()
                     set_lr(optimizer, lr_ctrl.lr)
                     actnorm_done = True
-                aux = train_step(network, optimizer, step_encoder, seq, cond,
-                                 draws.normal("posterior", epoch, i, global_step, (n, z_dim)),
-                                 draws.normal("reference", epoch, i, global_step, (n, z_dim)))
+                eps = draws.normal("posterior", epoch, i, global_step, (n, z_dim))
+                ref = draws.normal("reference", epoch, i, global_step, (n, z_dim))
+                if moments is None:
+                    aux = train_step(network, optimizer, step_encoder, seq, cond, eps, ref)
+                else:
+                    aux = cached_train_step(network, optimizer, moments, wids, cond, eps, ref,
+                                            cache_dtype)
                 aux = {k: float(v) for k, v in aux.items()}
                 loss_track_train.append(aux)
                 wandb_sink.log({f"train_{k}": v for k, v in aux.items()})
@@ -409,23 +472,35 @@ def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
     }
 
 
+def _window_ids(windex: WindowIndex, loader, batch: dict, device) -> torch.Tensor:
+    if "index" not in batch:
+        raise ValueError("Training.cache_posteriors: the train loader must yield each window's "
+                         "index and start (Loader(..., with_meta=True))")
+    ids = windex.ids(loader.dataset, batch["index"], batch["start"])
+    return torch.from_numpy(ids).to(device)
+
+
 def main(opt, max_steps: int | None = None, eval_fvd: bool = True, device=None,
          draws: Draws | None = None) -> dict:
     """Train from the directories ``opt`` chains to, on ``device`` (``cuda``
     unless the caller passes another); ``draws`` replaces the run's draws."""
     device = resolve_device(device)
+    _check_supported(opt)  # before any model is built
     guard = PreemptionGuard()
     try:
         maybe_enable_debug_nans()
         models = build_models(opt)
         tr = opt.Training
+        cached = bool(tr.get("cache_posteriors", False))
         dataset_cls = get_loader(opt.Data["dataset"], control=bool(tr.get("control", False)))
         fs_spec = opt.Data.get("framestore", "off")
         loaders = {}
         for mode, bs, seed in (("train", tr["bs"], 42), ("eval", tr["bs_eval"], 43)):
             ds = dataset_cls(opt, mode=mode)
+            lean = cached and mode == "train"  # one conditioning frame and the window's id
             loaders[mode] = Loader(ds, bs, workers=tr["workers"], drop_last=False, seed=seed,
-                                   framestore=open_or_build(ds, fs_spec, mode))
+                                   framestore=open_or_build(ds, fs_spec, mode),
+                                   frames_per_item=1 if lean else None, with_meta=lean)
         return train(opt, models, loaders["train"], loaders["eval"], device=device,
                      max_steps=max_steps, eval_fvd=eval_fvd, draws=draws, guard=guard)
     finally:

@@ -18,11 +18,17 @@ first loss by 0.2%), beside the JAX trainer.
   still written; the port's ``cINN.msgpack`` loads in the JAX facade and the
   port's ``Model`` from the run directory, and both give the same video at a
   fixed residual (1e-4, kernels off on both sides).
+* The posterior cache (``Training.cache_posteriors`` with ``Data.aug:
+  false``): with the JAX draws and initial flow, one cached epoch of the
+  port's ``main`` matches the JAX package's cached ``main`` to the
+  tolerances above; the port's cached run matches its own uncached run with
+  aug off (losses rtol 1e-5 and the flow rtol 1e-4, atol 5e-5, the JAX
+  package's bounds for the cache's encoder batch against the step's).
 * The CLI trains and writes its files; a SIGTERM through ``PreemptionGuard``
   stops the run after the step it came in and writes ``cINN_latest``;
-  ``Training.distributed`` and ``Training.cache_posteriors`` raise; the
-  entry points default to ``cuda``; the config the trainer writes reads
-  back in both packages.
+  ``Training.distributed`` raises, and so does ``cache_posteriors`` with the
+  augmentation on, before any model is built; the entry points default to
+  ``cuda``; the config the trainer writes reads back in both packages.
 """
 
 import csv
@@ -87,7 +93,10 @@ def world(tmp_path_factory):
     return model_dir, data, root
 
 
-def _opt(pkg, world, out: str, n_epochs: int, reload: str | None = None):
+def _opt(pkg, world, out: str, n_epochs: int, reload: str | None = None,
+         cached: bool | None = None):
+    """``cached`` set (True or False) turns the augmentation off and the
+    posterior cache on or off."""
     model_dir, data, root = world
     opt = pkg.load(os.path.join(model_dir, "config_stage2.yaml"))
     opt.Data["data_path"] = data
@@ -96,6 +105,9 @@ def _opt(pkg, world, out: str, n_epochs: int, reload: str | None = None):
         opt.Training[k] = v
     if reload:
         opt.Training["reload_path"] = reload
+    if cached is not None:
+        opt.Data["aug"] = False
+        opt.Training["cache_posteriors"] = cached
     return opt
 
 
@@ -108,11 +120,10 @@ def jax_runs(world):
     return first, second
 
 
-@pytest.fixture(scope="module")
-def port_run(world):
-    """The port's first epoch with the JAX draws, from the JAX trainer's
-    initial flow (``build_models``' ``PRNGKey(0)`` init, shuffles included:
-    torch cannot draw them)."""
+def _port_main_like_jax(opt):
+    """The port's ``main`` with the JAX draws, from the JAX trainer's initial
+    flow (``build_models``' ``PRNGKey(0)`` init, shuffles included: torch
+    cannot draw them)."""
     build = tstage2.build_models
 
     def with_jax_init(opt):
@@ -124,8 +135,13 @@ def port_run(world):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tstage2, "build_models", with_jax_init)
-        return tstage2.main(_opt(tcfg, world, "port_a", 1), eval_fvd=False, device="cpu",
-                            draws=JaxDraws())
+        return tstage2.main(opt, eval_fvd=False, device="cpu", draws=JaxDraws())
+
+
+@pytest.fixture(scope="module")
+def port_run(world):
+    """The port's first epoch, as the JAX trainer runs it."""
+    return _port_main_like_jax(_opt(tcfg, world, "port_a", 1))
 
 
 def _csv(run_dir, name):
@@ -178,6 +194,37 @@ def test_main_matches_jax_main(port_run, jax_runs):
     _same_losses(port_run["save_path"], jax_runs[0])
     _same_latest(port_run["save_path"], jax_runs[0], n_steps=2)
     assert port_run["global_step"] == 2
+
+
+def test_cached_main_matches_jax_cached_main(world):
+    want = jstage2.main(_opt(jcfg, world, "jax_cached", 1, cached=True),
+                        eval_fvd=False)["save_path"]
+    got = _port_main_like_jax(_opt(tcfg, world, "port_cached", 1, cached=True))
+    assert got["global_step"] == 2
+    _same_losses(got["save_path"], want)
+    _same_latest(got["save_path"], want, n_steps=2)
+
+
+def test_cached_main_matches_own_uncached_run(world, capsys):
+    """Two epochs from the same flow and draws: the cached steps resample the
+    moments the uncached steps' encoder computes, from the same eps."""
+    runs = {}
+    for cached in (False, True):
+        out = tstage2.main(_opt(tcfg, world, f"own_cached_{cached}", 2, cached=cached),
+                           eval_fvd=False, device="cpu")
+        assert out["global_step"] == 4
+        runs[cached] = out["save_path"]
+    assert "posterior cache: 176 windows x 2 x 16 fp32" in capsys.readouterr().out
+    for name in ("log_per_epoch_train.csv", "log_per_epoch_eval.csv"):
+        got, want = _csv(runs[True], name), _csv(runs[False], name)
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            for k in LOSS_KEYS:
+                assert g[k] == pytest.approx(w[k], rel=1e-5), (name, k)
+    got = tckpt.load(os.path.join(runs[True], "cINN_latest.msgpack"))["state_dict"]["params"]
+    want = tckpt.load(os.path.join(runs[False], "cINN_latest.msgpack"))["state_dict"]["params"]
+    _walk(got["flow"], want["flow"], lambda path, a, b: np.testing.assert_allclose(
+        np.asarray(a), np.asarray(b), rtol=1e-4, atol=5e-5, err_msg=path))
 
 
 def test_resume_from_jax_checkpoint_matches_jax_resume(world, jax_runs):
@@ -263,12 +310,16 @@ def test_sigterm_stops_the_run_and_writes_latest(world, monkeypatch):
     assert signal.getsignal(signal.SIGTERM) is before
 
 
-@pytest.mark.parametrize("key,value,match", [("distributed", True, "slice 10"),
-                                             ("cache_posteriors", True, "item 11b")])
-def test_unported_options_raise(world, key, value, match):
+@pytest.mark.parametrize("key,value,error,match", [
+    ("distributed", True, NotImplementedError, "slice 10"),
+    ("cache_posteriors", True, ValueError, "requires Data.aug: false")])
+def test_unported_options_raise(world, monkeypatch, key, value, error, match):
+    """Refused before any model is built; the cache only with aug on."""
     opt = _opt(tcfg, world, "port_raise", 1)
     opt.Training[key] = value
-    with pytest.raises(NotImplementedError, match=match):
+    opt.Data["aug"] = True
+    monkeypatch.setattr(tstage2, "build_models", lambda opt: pytest.fail("a model was built"))
+    with pytest.raises(error, match=match):
         tstage2.main(opt, eval_fvd=False, device="cpu")
 
 
