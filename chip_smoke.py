@@ -91,8 +91,10 @@ Phases (any failure raises and the script exits non-zero):
    FrameStores, random full-size networks, 2 epochs of 2 steps (pretrain
    cut to 1: epoch 0 gated, epoch 1 open) with the discriminator's ActNorm
    init, validation and ``Encoder_stage2``, in its own counted window (no
-   flow chain on this path). Checks: losses, ``Logvar`` and ``Disc_weight``
-   finite; one whole step on the card against the CPU at bs 2, with the
+   flow chain on this path), with deterministic algorithms, so that the
+   trained state (its fingerprint printed) repeats from run to run. Checks:
+   losses, ``Logvar`` and ``Disc_weight`` finite; one whole step from that
+   state on the card against the CPU at bs 2, with the
    discriminator's spectral vectors converged before its ActNorm init, in
    fp64 the losses (``F64_LOSS_TOL``), and ``Disc_weight`` (a ratio of
    gradient norms) and both optimizers' gradients (``F64_GRAD_TOL``), fp32
@@ -151,6 +153,14 @@ Phases (any failure raises and the script exits non-zero):
    windows/s (fp32, bf16), the cached and the uncached step at bs 50 with aug
    off (fp32, bf16; each with its copy from the host), and the bytes each
    copies from the host.
+   4j. Data parallelism (``parallel/``) at the full BAIR preset. Serving:
+   ``Model(data_parallel=...)`` over every visible card and over two
+   replicas on ``cuda:0``, bs 7 (the two-replica split pads a row), fp32 and
+   bf16 decoder, and a landscape ``transfer_sample`` on two replicas, each
+   against one device (``DP_TOL``, the JAX package's bound), in three counted
+   windows: one reverse chain a replica a call, one forward chain for the
+   query; the bf16 latency of two replicas beside one. Its training half
+   runs as phase 7.
 5. Timings: each kernel's median ms beside its plain version and its bound;
    the reverse chain at B = 1, 6 and 16; where a chain's time goes, from the
    timeline build (per layer and pass, and the kernel's own span), and a
@@ -170,7 +180,26 @@ Phases (any failure raises and the script exits non-zero):
    before the first flow chain (the embedder; in transfer, the encoder and
    the query's embedding). The traces are written to ``smoke_out/`` (listed
    in ``.gitignore``).
-7. A ``{"kernels": [...]}`` line (launches summed over the ten counted
+7. Multi-process training (phase 4j's second half, after this process has
+   let its models go): the trainers' ``main``s on configs chained to phases
+   4d-4f (their splits and FrameStores, 4e's stage-1 run, 4f's AE, 4c's
+   backbones): stage 2 at bs 50 (validation and prior FVD), stage 2 cached
+   (its cache built in shards), stage 1 at bs 10 and the AE at bs 30 with
+   the discriminators open, at their configs' lr, one epoch (2 steps) each,
+   and stage 1 (bs 4) and the AE (bs 6) again in fp64
+   (``testing.float64_training``, 2 steps); first in this process in a
+   one-rank NCCL group, then in two ranks of a gloo group that this script
+   spawns (``--par-rank``; ``Training.distributed`` mappings) on the one
+   card; checkpoint writes are recorded, not written. Checks: the ranks log
+   the same losses and end with the same weights; stage 1's fp64 run, one
+   fp64 step of stage 2 (loss terms, averaged gradients, the flow after it)
+   and one fp64 step of the AE at lr 0 (metrics, averaged gradients, running
+   statistics, ActNorm and spectral state) equal the one process's
+   (``PAR_TOL``; gradients against each tensor's largest); the sharded cache
+   equals the one-process cache bitwise; rank 0 alone writes; both groups
+   all-reduce on the card. The fp32 runs' and the AE's fp64 run's
+   differences and each process's step and job times are printed.
+8. A ``{"kernels": [...]}`` line (launches summed over the thirteen counted
    windows), then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is visible, and when the
@@ -1750,6 +1779,10 @@ def phase_train_ae(card: str, tmp: Path):
         return write_tree(m)
 
     stage2_ae.encoder_variables = recording
+    # deterministic algorithms, so that the trained state the card-against-CPU
+    # step starts from (and the error it reads) repeats from run to run
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         torch.cuda.synchronize()
         zero_counts()
@@ -1759,6 +1792,11 @@ def phase_train_ae(card: str, tmp: Path):
         wall = time.perf_counter() - t0
     finally:
         stage2_ae.encoder_variables = write_tree
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    fingerprint = sum(float(p.detach().double().sum()) for m in (models.network, models.disc)
+                      for p in m.parameters())
+    log(f"  the trained state's fingerprint (the sum of its weights, fp64): {fingerprint!r}")
     launches, device_launches = dict(fk.launches), dict(fk.device_launches)
     log(f"  stage-2 AE training chain launches: {launches}; device kernels: {device_launches}")
     if any(launches.values()) or any(device_launches.values()):
@@ -1810,6 +1848,8 @@ def phase_train_ae(card: str, tmp: Path):
                 secs[state, dev, dt] = time.perf_counter() - t1
     del conditioned
 
+    worst = {}  # the loss that sets each comparison's loss error
+
     def versus(state, dt) -> tuple[float, float, float]:
         """The losses over max(|loss|, 1); Disc_weight, a ratio of two
         gradient norms, relative; each optimizer's gradients over its largest."""
@@ -1817,7 +1857,9 @@ def phase_train_ae(card: str, tmp: Path):
         if set(ga) != set(gc):
             raise AssertionError(f"stage-2 AE: the card updated {sorted(ga)}, the CPU "
                                  f"{sorted(gc)}")
-        m_err = max(abs(ma[k] - mc[k]) / max(abs(mc[k]), 1.0) for k in mc if k != "Disc_weight")
+        m_err, m_key = max((abs(ma[k] - mc[k]) / max(abs(mc[k]), 1.0), k) for k in mc
+                           if k != "Disc_weight")
+        worst[state, dt] = f"{m_key}: card {ma[m_key]!r}, CPU {mc[m_key]!r}"
         w_err = abs(ma["Disc_weight"] - mc["Disc_weight"]) / abs(mc["Disc_weight"])
         g_err = 0.0
         for name in gc:
@@ -1840,7 +1882,8 @@ def phase_train_ae(card: str, tmp: Path):
         f"{secs['conditioned', 'cpu', torch.float64]:.1f} s fp64, "
         f"{secs['conditioned', 'cpu', torch.float32]:.1f} s fp32), the discriminator refreshed "
         f"{AE_SN_ITERS} times before its ActNorm init ({state_of('conditioned')}): fp64 losses "
-        f"{m64:.3e} (bound {F64_LOSS_TOL:g}), Disc_weight {w64:.3e} and both optimizers' "
+        f"{m64:.3e} (bound {F64_LOSS_TOL:g}; {worst['conditioned', torch.float64]}), "
+        f"Disc_weight {w64:.3e} and both optimizers' "
         f"gradients {g64:.3e} (bound {F64_GRAD_TOL:g}) {'ok' if ok else 'FAIL'}; fp32 (reported) "
         f"losses {m32:.3e}, Disc_weight {w32:.3e}, gradients {g32:.3e}. The run's own state "
         f"({state_of('run')}), reported: fp64 losses {r64:.3e}, Disc_weight {rw64:.3e}, "
@@ -2633,6 +2676,627 @@ def phase_train_cached(card: str, tmp: Path, weights_root: str):
     return launches, device_launches, traced_step
 
 
+# phase 4j, data parallelism at the BAIR preset (parallel/): serving replicas
+# in one process, and the trainers' mains in two processes on the one card
+DP_BATCH = 7  # two replicas pad it to 8
+DP_TOL = dict(rtol=1e-3, atol=1e-4)  # the JAX package's data-parallel bound, tests/test_parallel.py
+DP_TIMED_RUNS = 7
+PAR_RANKS = 2
+PAR_ONE_BACKEND = "nccl"  # the one-process runs' group: NCCL initialises and reduces on the card
+PAR_TIMEOUT = 900  # seconds for each spawned process
+# two ranks against one process on the card, TF32 off, at the JAX package's
+# two-process bound (tests/test_distributed.py): the logged losses, every
+# trained weight and buffer (the running statistics and spectral vectors
+# included) and, for stage 2, the averaged gradients of one step. In fp32 no
+# fixed bound separates a fault from rounding: cuDNN and cuBLAS pick their
+# algorithms by batch (25 rows a rank against 50), and Adam's first steps
+# turn rounding on a near-zero gradient into a step of about lr either way
+# (run at the configs' lr, a stage-1 spectral vector ended 8.7% apart). So
+# stage 1 is held in fp64 (``testing.float64_training``, a whole run), stage
+# 2 by one step in fp64 (``par_step64``: its validation and prior FVD run the
+# fp32 chain kernels), and the AE by one step in fp64 at lr 0
+# (``par_ae_step64``): its whole fp64 run is reported, since from the random
+# discriminator's collapsed state (PERF.md) d_weight multiplies a generator
+# gradient that is nearly all cancellation, and Adam's first steps turn
+# even fp64 rounding there into steps of about lr either way. The averaged
+# gradients are held against each tensor's largest, as phases 4d-4f hold
+# the card's; the fp32 runs' differences are reported beside them
+PAR_TOL = dict(rtol=1e-5, atol=1e-7)
+PAR_STEP64_SEED = 4242
+
+def dp_close(key: str, got, want) -> None:
+    """Log max |got - want|; raise unless allclose at ``DP_TOL``."""
+    import torch
+
+    err = max_err(got, want)
+    ok = bool(torch.allclose(got.float(), want.float(), **DP_TOL))
+    log(f"  {key}: max_abs_err={err:.3e} (rtol {DP_TOL['rtol']}, atol {DP_TOL['atol']}) ok={ok}")
+    if not ok:
+        raise AssertionError(f"data-parallel output differs from one device: {key}")
+
+
+def phase_dp_serving(card: str):
+    """``Model(data_parallel=...)`` at the full BAIR preset over every visible
+    card and over two replicas on ``cuda:0`` (bs 7: the two-replica split pads
+    one row), fp32 and bf16 decoder, in a counted window (one reverse chain a
+    replica a call). Each replica's rows against one device's on the same
+    padded block of rows, and the whole batch against one device's whole
+    batch (in bf16 reported: cuDNN rounds the bf16 decoder differently at 4
+    rows and at 7); one landscape transfer likewise; then the latency of two
+    replicas beside one."""
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
+    from image2video_synthesis_using_cinns_tpu_torch.parallel.mesh import make_mesh
+    from image2video_synthesis_using_cinns_tpu_torch.testing import PRESETS, build_model
+
+    p = PRESETS[PRESET]
+    img = p["img_size"]
+    rng = np.random.default_rng(777)
+    x0 = torch.from_numpy(rng.uniform(-1, 1, (DP_BATCH, 3, img, img)).astype(np.float32)).to(DEVICE)
+    meshes = {"every card": make_mesh(), "2 replicas on cuda:0": ["cuda:0", "cuda:0"]}
+    log(f"  serving meshes: {{'every card': {[str(d) for d in meshes['every card']]}, "
+        "'2 replicas on cuda:0': ['cuda:0', 'cuda:0']}")
+    outs = {}
+    for dt in ("float32", "bfloat16"):
+        one = build_model(PRESET, vid_length=16, seed=0, compute_dtype=dt, device=DEVICE)
+        dps = {name: build_model(PRESET, vid_length=16, seed=0, compute_dtype=dt,
+                                 data_parallel=mesh) for name, mesh in meshes.items()}
+        torch.cuda.synchronize()
+        zero_counts()
+        with torch.no_grad():
+            got = {name: m.sample(x0) for name, m in dps.items()}  # nu from each model's seed
+        torch.cuda.synchronize()
+        launches, device_launches = dict(fk.launches), dict(fk.device_launches)
+        want_n = sum(len(mesh) for mesh in meshes.values())
+        log(f"  DP serving {dt} chain launches: {launches}; device kernels: {device_launches} "
+            f"(expected {want_n} reverse: one a replica)")
+        if launches != {"flow_reverse_fused": want_n, "flow_forward_fused": 0}:
+            raise AssertionError(f"DP serving {dt}: chain launches {launches}")
+        if device_launches != launches:
+            raise AssertionError("DP serving: a chain launched other than one device kernel")
+        outs[dt] = (launches, device_launches)
+        with torch.no_grad():
+            want = one.sample(x0)
+            # one device on each replica's block of the padded batch, the same nu
+            nu = one.draw_residual(DP_BATCH)
+            blocks = {}
+            for name, m in dps.items():
+                n = len(m.mesh)
+                pad = -DP_BATCH % n
+                xp = torch.cat([x0, x0[-1:].expand(pad, -1, -1, -1)])
+                nup = torch.cat([nu, nu[-1:].expand(pad, -1)])
+                per = xp.shape[0] // n
+                parts = [one.sample(xp[i * per:(i + 1) * per], residual=nup[i * per:(i + 1) * per])
+                         for i in range(n)]
+                blocks[name] = (m.sample(x0, residual=nu),
+                                [torch.cat([p[k] for p in parts])[:DP_BATCH] for k in (0, 1)])
+        for name, (vid, z) in got.items():
+            check_video(f"DP {name} {dt}", vid, (DP_BATCH, 16, 3, img, img))
+            (bv, bz), (wv, wz) = blocks[name]
+            dp_close(f"DP {name} {dt} video, each replica vs one device on its rows", bv, wv)
+            dp_close(f"DP {name} {dt} z, each replica vs one device on its rows", bz, wz)
+            if dt == "float32":
+                dp_close(f"DP {name} {dt} video vs one device", vid, want[0])
+            else:
+                log(f"  DP {name} {dt} video vs one device on all {DP_BATCH} rows: max_abs_err="
+                    f"{max_err(vid, want[0]):.3e} (reported: bf16 rounds by batch size)")
+            dp_close(f"DP {name} {dt} z vs one device", z, want[1])
+        if dt == "bfloat16":
+            dp2 = dps["2 replicas on cuda:0"]
+            for label, model in (("one device", one), ("2 replicas on cuda:0", dp2)):
+                ms = []
+                with torch.no_grad():
+                    for _ in range(DP_TIMED_RUNS + 1):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        model.forward(x0)
+                        torch.cuda.synchronize()
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                log(f"  [{card}] Model.forward bair bs={DP_BATCH} T=16 bf16, {label}: median "
+                    f"{statistics.median(ms[1:]):.3f} ms of {DP_TIMED_RUNS} (host-timed; two "
+                    "replicas on one card share it: not a scaling result)")
+        del one, dps, got
+
+    # the landscape transfer: the query's pass once, the start frames split
+    tp = PRESETS[TRANSFER_PRESET]
+    timg = tp["img_size"]
+    q = torch.from_numpy(rng.uniform(-1, 1, (1, QUERY_FRAMES, 3, timg, timg))
+                         .astype(np.float32)).to(DEVICE)
+    tx0 = torch.from_numpy(rng.uniform(-1, 1, (DP_BATCH, 3, timg, timg))
+                           .astype(np.float32)).to(DEVICE)
+    one = build_model(TRANSFER_PRESET, vid_length=16, seed=0, transfer=True, device=DEVICE)
+    dp2 = build_model(TRANSFER_PRESET, vid_length=16, seed=0, transfer=True,
+                      data_parallel=["cuda:0", "cuda:0"])
+    torch.cuda.synchronize()
+    zero_counts()
+    with torch.no_grad():
+        vid, z = dp2.transfer_sample(q, tx0)
+    torch.cuda.synchronize()
+    t_launches, t_device = dict(fk.launches), dict(fk.device_launches)
+    log(f"  DP transfer chain launches: {t_launches}; device kernels: {t_device} (expected 1 "
+        "forward for the query, 2 reverse: one a replica)")
+    if t_launches != {"flow_reverse_fused": 2, "flow_forward_fused": 1} or t_device != t_launches:
+        raise AssertionError(f"DP transfer: chain launches {t_launches}, device {t_device}")
+    with torch.no_grad():
+        want = one.transfer_sample(q, tx0)
+    check_video("DP transfer landscape float32", vid, (DP_BATCH, 16, 3, timg, timg))
+    dp_close("DP transfer video vs one device", vid, want[0])
+    dp_close("DP transfer z_ref vs one device", z, want[1])
+    del one, dp2
+    launches = {k: sum(o[0][k] for o in outs.values()) + t_launches[k] for k in t_launches}
+    device_launches = {k: sum(o[1][k] for o in outs.values()) + t_device[k] for k in t_device}
+    return launches, device_launches
+
+
+def par_configs(tmp: Path) -> dict:
+    """The configs of the multi-process jobs (no ``distributed`` yet): stage 2
+    at bs 50 on phase 4d's splits, chained to 4e's stage-1 run and 4f's AE,
+    uncached with validation and prior FVD, and cached (its cache built one
+    video a dispatch, so a shard's rows are the one-process rows); stage 1 at
+    bs 10 on 4e's splits and the AE at bs 30 on 4f's splits, the
+    discriminators open, at their configs' lr. One epoch each (2 steps). The
+    FrameStores of those phases are linked where ``Data.framestore: auto``
+    looks for them."""
+    import os
+
+    from image2video_synthesis_using_cinns_tpu_torch.config import Config
+    from image2video_synthesis_using_cinns_tpu_torch.data import get_loader
+    from image2video_synthesis_using_cinns_tpu_torch.testing import configs
+
+    cls = get_loader("BAIR").__name__  # open_or_build's auto name: <data_path>/.framestore/<cls>_<mode>.fst
+    for root, prefix in (("bair_train", "train"), ("bair_train_s1", "s1"),
+                         ("bair_train_ae", "ae")):
+        (tmp / root / ".framestore").mkdir(exist_ok=True)
+        for mode in ("train", "eval"):
+            for ext in ("", ".json"):
+                link = tmp / root / ".framestore" / f"{cls}_{mode}.fst{ext}"
+                if not link.exists():
+                    os.symlink(tmp / f"{prefix}_{mode}.fst{ext}", link)
+    s1_run = next((tmp / "runs_s1").glob("Stage1_*"))
+    ae_run = next((tmp / "runs_ae").glob("Stage2_AE_*"))
+    opt = configs(PRESET)[0]
+    opt.Conditioning_Model = Config(dict(opt.Conditioning_Model, checkpoint_name="Encoder_stage2",
+                                         model_path=str(ae_run.parent), model_name=ae_run.name))
+    opt.First_stage_model = Config(dict(checkpoint_encoder="best_PFVD_ENC",
+                                        checkpoint_decoder="best_PFVD_GEN",
+                                        model_path=str(s1_run.parent), model_name=s1_run.name))
+    opt.Training = Config(dict(TRAIN_CONFIG, n_epochs=1))
+    opt.Data = Config(dict(TRAIN_DATA, data_path=str(tmp / "bair_train") + "/",
+                           framestore="auto"))
+    opt.Logging = Config({"mode": "disabled"})
+    cached = Config(opt.to_dict())
+    cached.Data["aug"] = False
+    cached.Training.update(cache_posteriors=True, cache_videos_per_dispatch=1)
+    s1 = s1_config(tmp, str(tmp / "bair_train_s1") + "/")
+    s1.Training.update(n_epochs=1, pretrain=0)
+    s1.Data["framestore"] = "auto"
+    ae = ae_config(tmp, str(tmp / "bair_train_ae") + "/")
+    ae.Training.update(n_epochs=1, pretrain=0)
+    ae.Data["framestore"] = "auto"
+    return {"stage2": opt, "stage2_cached": cached, "stage1": s1, "ae": ae}
+
+
+# the jobs, in the order each process runs them; the fp64 runs (the held
+# comparison) at smaller global batches and 2 steps, to keep the phase's time
+PAR_JOBS = (dict(tag="stage2", name="stage2"), dict(tag="stage2_cached", name="stage2_cached"),
+            dict(tag="stage1", name="stage1"),
+            dict(tag="stage1_fp64", name="stage1", fp64=True, max_steps=2,
+                 training=dict(bs=4, bs_eval=4)),
+            dict(tag="ae", name="ae"),
+            dict(tag="ae_fp64", name="ae", fp64=True, max_steps=2, training=dict(bs=6),
+                 reported=True))
+
+
+def par_step64(models, network, tr: dict, seq_len: int) -> dict:
+    """One stage-2 step in fp64 from ``network`` (the run's flow as built) on
+    this rank's rows of a seeded global batch of ``tr["bs"]`` clips, as the
+    trainer takes its first step: the ActNorm init, the posterior, the flow's
+    loss and backward, ``Adam`` (which averages the gradients over the ranks).
+    Returns the global batch's loss terms (``loss/``), the gradients as Adam
+    applied them (``grad/``) and the flow after the step (``flow64/``)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.parallel import distributed
+    from image2video_synthesis_using_cinns_tpu_torch.train import stage2
+    from image2video_synthesis_using_cinns_tpu_torch.train.optim import adam_torch
+
+    f64 = torch.float64
+    n, z, img = int(tr["bs"]), models.config1.Decoder["z_dim"], TRAIN_DATA["img_size"]
+    rng = np.random.default_rng(PAR_STEP64_SEED)
+    rows = distributed.host_batch_slice(n)
+    seq = torch.from_numpy(rng.uniform(-1, 1, (n, seq_len, img, img, 3)))[rows].to(DEVICE)
+    eps0, eps, ref = (torch.from_numpy(rng.standard_normal((n, z)))[rows].to(DEVICE)
+                      for _ in range(3))
+    net = copy.deepcopy(network).to(DEVICE, f64)
+    net.embedder.requires_grad_(False)
+    enc = copy.deepcopy(models.encoder).to(DEVICE, f64).eval()
+    cond = stage2.conditioning(seq, None)
+
+    def post(e):
+        with torch.no_grad():
+            return enc(seq[:, 1:].permute(0, 4, 1, 2, 3), noise=e)[0].reshape(seq.shape[0], -1)
+
+    net.init_actnorm(post(eps0), cond)
+    params = list(net.flow.named_parameters())
+    optimizer = adam_torch([p for _, p in params], tr["lr"], betas=(tr["beta1"], tr["beta2"]),
+                           weight_decay=tr["weight_decay"], amsgrad=bool(tr["amsgrad"]))
+    aux = distributed.mean_scalars(stage2._flow_step(net, optimizer, post(eps), cond, ref))
+    out = {f"loss/{k}": np.float64(v) for k, v in aux.items()}
+    out.update({f"grad/{k}": p.grad.cpu().numpy() for k, p in params})
+    out.update({f"flow64/{k}": v.cpu().numpy() for k, v in net.flow.state_dict().items()})
+    return out
+
+
+def par_ae_step64(models, tr: dict) -> dict:
+    """One AE step in fp64 at lr 0 from ``models`` (the AE as built) on this
+    rank's rows of a seeded global batch of ``tr["bs"]`` images, the gate
+    open: the discriminator's ActNorm init, the forward, d_weight from the
+    averaged colorize gradients, both optimizers (which average the
+    gradients over the ranks; at lr 0 every later quantity is taken from the
+    same weights in every process), the recompute (the BatchNorms' running
+    statistics) and the spectral refresh. Returns the global batch's metrics
+    (``loss/``), each optimizer's gradients as it applied them (``grad/``)
+    and the modules' state after the step (``state64/``)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.models import layers
+    from image2video_synthesis_using_cinns_tpu_torch.parallel import distributed
+    from image2video_synthesis_using_cinns_tpu_torch.train import stage2_ae
+
+    n, img = int(tr["bs"]), AE_DATA["img_size"]
+    rng = np.random.default_rng(PAR_STEP64_SEED)
+    x = torch.from_numpy(rng.uniform(-1, 1, (n, 3, img, img)))[distributed.host_batch_slice(n)]
+    m = copy.deepcopy(models).to(DEVICE).to(torch.float64)
+    x = x.to(DEVICE)
+    layers.init_actnorm(m.disc, x)
+    optimizers = stage2_ae.make_optimizers(m, 0.0, tr["weight_decay"])
+    out = {}
+    for name, o in zip(("GEN", "DISC"), optimizers):
+        def step(o=o, name=name, apply=o.step):
+            apply()
+            for i, p in enumerate(o.param_groups[0]["params"]):
+                out[f"grad/{name}/{i}"] = p.grad.cpu().numpy()
+        o.step = step
+    metrics, _ = stage2_ae.AEStep(m, optimizers, tr)(x, 1)
+    out.update({f"loss/{k}": np.float64(v)
+                for k, v in distributed.mean_scalars(metrics).items()})
+    for net_name, net in (("network", m.network), ("disc", m.disc)):
+        out.update({f"state64/{net_name}/{k}": v.cpu().numpy()
+                    for k, v in net.state_dict().items()})
+    return out
+
+
+def par_job(job: dict, config: str, out: Path, save: bool, builds: dict) -> dict:
+    """One trainer ``main`` on the card as ``job`` says (fp64 through
+    ``testing.float64_training``, at most ``max_steps`` steps), its modules
+    copied from this process's first build of them (``builds``, by
+    trainer), its checkpoint writes recorded, not written: phases 4d-4f
+    held the files to the JAX layout, and here only which rank writes
+    matters. The trained modules' weights and buffers (the posterior cache;
+    for stage 2 also ``par_step64``'s) are saved to ``<out>/<tag>.npz`` when
+    ``save``, and their digest returned beside the logged losses, each
+    step's time, the job's wall time and the files written."""
+    import contextlib
+    import copy
+    import hashlib
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch import config as cfg
+    from image2video_synthesis_using_cinns_tpu_torch.parallel import distributed
+    from image2video_synthesis_using_cinns_tpu_torch.testing import float64_training
+    from image2video_synthesis_using_cinns_tpu_torch.train import stage1, stage1_step, stage2
+    from image2video_synthesis_using_cinns_tpu_torch.train import stage2_ae
+    from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint as ckpt_io
+
+    tag, name, fp64 = job["tag"], job["name"], job["fp64"]
+    trainer = "stage2" if name.startswith("stage2") else name
+    module = {"stage2": stage2, "stage1": stage1, "ae": stage2_ae}[trainer]
+    kept, step_s, ckpts = {}, [], []
+    t_job = time.perf_counter()
+
+    def shared(f):  # under the fp64 cast: each job casts its own copy
+        def build(*a, **k):
+            if trainer not in builds:
+                builds[trainer] = f(*a, **k)
+            return copy.deepcopy(builds[trainer])
+        return build
+
+    def keep(f):
+        def build(*a, **k):
+            kept["models"] = f(*a, **k)
+            return kept["models"]
+        return build
+
+    def timed(f):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = f(*a, **k)
+            torch.cuda.synchronize()
+            if k.get("train", True):  # the AE's eval step is the same call
+                step_s.append(time.perf_counter() - t0)
+            return r
+        return call
+
+    patches = [(module, "build_models", keep),
+               (ckpt_io.AsyncWriter, "save_async",
+                lambda f: lambda self, path, payload: ckpts.append(Path(path).name))]
+    if name == "stage2_cached":
+        for fn in ("build_cache", "assemble_cache_multiprocess"):
+            patches.append((stage2, fn, lambda f: lambda *a, **k: kept.__setitem__(
+                "cache", f(*a, **k)) or kept["cache"]))
+    step_owner = {"stage1": (stage1_step.Stage1Step, "__call__"),
+                  "ae": (stage2_ae.AEStep, "__call__")}.get(name)
+    patches.append(step_owner + (timed,) if step_owner else
+                   (stage2, "cached_train_step" if name == "stage2_cached" else "train_step",
+                    timed))
+    build = module.build_models
+    module.build_models = shared(build)
+    try:
+        with float64_training(module) if fp64 else contextlib.nullcontext():
+            saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+            for (obj, attr, wrap), (_, _, f) in zip(patches, saved):
+                setattr(obj, attr, wrap(f))
+            try:
+                opt = cfg.load(config)
+                kw = {} if name == "ae" else {"eval_fvd": job["eval_fvd"]}
+                res = module.main(opt, max_steps=job["max_steps"], device=DEVICE, **kw)
+            finally:
+                for obj, attr, f in reversed(saved):
+                    setattr(obj, attr, f)
+    finally:
+        module.build_models = build
+    # every rank lists the runs' directory, then rank 0 removes its run
+    runs = Path(res["save_path"]).parent
+    written = sorted(p.name for p in runs.iterdir())
+    distributed.barrier("chip_smoke-listed")
+    if distributed.is_primary():
+        shutil.rmtree(res["save_path"])
+    m = kept["models"]
+    nets = ({"flow": m.network.flow} if name.startswith("stage2") else
+            stage1.networks(m) if name == "stage1" else
+            {"network": m.network, "disc": m.disc})
+    arrays = {f"{n}/{k}": v.detach().cpu().numpy() for n, net in nets.items()
+              for k, v in net.state_dict().items()}
+    if name == "ae":
+        arrays["logvar"] = m.logvar.detach().cpu().numpy()
+    if "cache" in kept:
+        arrays["cache"] = kept["cache"].cpu().numpy()
+    if name == "stage2":  # from the flow as built
+        arrays.update(par_step64(m, builds["stage2"].network, opt.Training,
+                                 int(opt.Data["sequence_length"])))
+    if name == "ae" and not fp64:  # from the AE as built
+        arrays.update(par_ae_step64(builds["ae"], opt.Training))
+    digest = hashlib.sha256()
+    for k in sorted(arrays):
+        digest.update(k.encode() + np.ascontiguousarray(arrays[k]).tobytes())
+    if save:
+        np.savez(out / f"{tag}.npz", **arrays)
+    del kept, arrays
+    keys = ("train_metrics", "eval_metrics") if name == "stage1" else ("train_loss", "eval_loss")
+    vals = [list(res[k].values()) if isinstance(res[k], dict) else list(res[k]) for k in keys]
+    return {"train": [float(v) for v in vals[0]], "eval": [float(v) for v in vals[1]],
+            "save_path": res["save_path"], "written": written, "checkpoints": ckpts,
+            "step_s": step_s, "steps": res["global_step"], "digest": digest.hexdigest(),
+            "wall_s": time.perf_counter() - t_job}
+
+
+def par_run(spec: dict, rank: int) -> dict:
+    """The spec's jobs back to back in this process as rank ``rank`` (one
+    process group for all of them, joined by the first trainer), then one
+    all-reduce on the card through the group's backend. Returns each job's
+    result."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from image2video_synthesis_using_cinns_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, cwd = Path(spec["out"]), os.getcwd()
+    os.chdir(spec["tmp"])  # the trainers read their weights under ./models/ (phase 4c's)
+    try:
+        builds = {}
+        result = {job["tag"]: par_job(job, job["configs"][rank], out,
+                                      save=rank == 0 and spec["save"], builds=builds)
+                  for job in spec["jobs"]}
+        del builds
+        result["world"] = distributed.world()
+        result["backend"] = dist.get_backend()
+        t = torch.full((4,), float(rank + 1), device=DEVICE)
+        dist.all_reduce(t)  # on the card
+        result["all_reduce"] = t.tolist()
+    finally:
+        distributed.destroy()
+        os.chdir(cwd)
+    return result
+
+
+def par_worker(spec_path: str, rank: int) -> int:
+    """A process that phase 4j spawns: ``par_run``, its result to a file."""
+    spec = json.loads(Path(spec_path).read_text())
+    result = par_run(spec, rank)
+    (Path(spec["out"]) / f"{spec['tag']}_rank{rank}.json").write_text(json.dumps(result))
+    return 0
+
+
+def par_spawn(spec: dict, n: int) -> list[dict]:
+    """``par_run`` in ``n`` processes of this script (``--par-rank``), each
+    with a time limit; a failed or hung process fails the phase."""
+    out = Path(spec["out"])
+    path = out / f"{spec['tag']}.json"
+    path.write_text(json.dumps(spec))
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--par-rank",
+                               str(path), str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=PAR_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 4j: {spec['tag']} rank {r} failed (exit "
+                                 f"{p.returncode}):\n" + text[-6000:])
+    return [json.loads((out / f"{spec['tag']}_rank{r}.json").read_text()) for r in range(n)]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel_train(card: str, tmp: Path):
+    """The trainers' mains (``PAR_JOBS``): each once in this process, in a
+    one-rank NCCL group, then in two spawned ranks of a gloo group
+    (``Training.distributed`` mappings that differ in ``process_id``) on the
+    one card. Checks: the ranks agree exactly; the fp64 runs and stage 2's
+    fp64 step equal the one process's (``PAR_TOL``); the sharded posterior
+    cache is the one process's bitwise; rank 0 alone wrote; the NCCL group
+    reduces on the card. The fp32 runs' differences are reported."""
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch import config as cfg
+
+    out = tmp / "par"
+    out.mkdir()
+    t0 = time.perf_counter()
+    opts = par_configs(tmp)
+
+    def spec(tag: str, n: int, backend: str, save: bool) -> dict:
+        port = _free_port()
+        jobs = []
+        for job in PAR_JOBS:
+            job_tag, name = job["tag"], job["name"]
+            paths = []
+            for r in range(n):
+                o = cfg.Config(opts[name].to_dict())
+                o.Training.update(job.get("training", {}))
+                o.Training["save_path"] = str(out / f"{job_tag}_{tag}")
+                o.Training["distributed"] = {"coordinator_address": f"localhost:{port}",
+                                             "num_processes": n, "process_id": r,
+                                             "backend": backend}
+                paths.append(str(out / f"{job_tag}_{tag}_rank{r}.yaml"))
+                cfg.save(o, paths[-1])
+            jobs.append({"tag": job_tag, "name": name, "fp64": job.get("fp64", False),
+                         "max_steps": job.get("max_steps"), "configs": paths,
+                         "eval_fvd": name == "stage2"})
+        return {"jobs": jobs, "tmp": str(tmp), "out": str(out / tag), "tag": tag,
+                "save": save}
+
+    one_spec = spec("one", 1, PAR_ONE_BACKEND, True)
+    ranks_spec = spec("ranks", PAR_RANKS, "gloo", True)
+    for sp in (one_spec, ranks_spec):
+        Path(sp["out"]).mkdir()
+    log(f"  set-up {time.perf_counter() - t0:.2f} s; the configs' batch sizes global; jobs "
+        f"{PAR_JOBS}")
+    t0 = time.perf_counter()
+    one = par_run(one_spec, 0)
+    log(f"  one process (this one, a one-rank group): {time.perf_counter() - t0:.2f} s; "
+        f"backend {one['backend']}, world {one['world']}, all_reduce on the card "
+        f"{one['all_reduce']}")
+    if one["backend"] != PAR_ONE_BACKEND or one["world"] != 1 or one["all_reduce"] != [1.0] * 4:
+        raise AssertionError(f"the one-rank NCCL group: {one}")
+    gc.collect()
+    torch.cuda.empty_cache()  # the card to the ranks
+    t0 = time.perf_counter()
+    ranks = par_spawn(ranks_spec, PAR_RANKS)
+    log(f"  two ranks (spawned, a gloo group on the one card: NCCL refuses two ranks on one "
+        f"GPU): {time.perf_counter() - t0:.2f} s; backend {ranks[0]['backend']}, all_reduce "
+        f"on the card {ranks[0]['all_reduce']}")
+    if ranks[0]["world"] != PAR_RANKS or ranks[0]["all_reduce"] != [3.0] * 4:
+        raise AssertionError(f"the gloo group: {ranks[0]}")
+
+    def used(a, b, over_largest: bool = False) -> float:
+        """The largest share of its ``PAR_TOL`` bound that an element of ``a``
+        takes; with ``over_largest``, the bound of the tensor's largest."""
+        d, b = np.abs(a.astype(np.float64) - b), np.abs(b)
+        scale = b.max(initial=0.0) if over_largest else b
+        return float((d / (PAR_TOL["atol"] + PAR_TOL["rtol"] * scale)).max(initial=0.0))
+
+    errs = {}
+    for job in PAR_JOBS:
+        tag, fp64, reported = job["tag"], job.get("fp64", False), job.get("reported", False)
+        r0, r1, o = ranks[0][tag], ranks[1][tag], one[tag]
+        log(f"  [{card}] {tag}: step s one process {[round(x, 4) for x in o['step_s']]}, rank "
+            f"0 {[round(x, 4) for x in r0['step_s']]}, rank 1 "
+            f"{[round(x, 4) for x in r1['step_s']]} (two ranks share one card: not a scaling "
+            f"result); the job's wall s one process {o['wall_s']:.2f}, ranks "
+            f"{r0['wall_s']:.2f}, {r1['wall_s']:.2f}")
+        if (r0["train"], r0["eval"], r0["digest"]) != (r1["train"], r1["eval"], r1["digest"]):
+            raise AssertionError(f"{tag}: the ranks differ (logs or weights)")
+        run_dir = Path(r0["save_path"]).name
+        if (r0["written"], r1["written"]) != ([run_dir], [run_dir]) or r1["checkpoints"] or (
+                r0["checkpoints"] != o["checkpoints"]) or not r0["checkpoints"]:
+            raise AssertionError(f"{tag}: files written {r0['written']} {r1['written']}, "
+                                 f"checkpoints {r0['checkpoints']} {r1['checkpoints']}, one "
+                                 f"process {o['checkpoints']}: expected rank 0's alone")
+        if len(r0["train"]) != len(o["train"]) or not r0["train"] or o["steps"] != r0["steps"]:
+            raise AssertionError(f"{tag}: logs of different length")
+        got = np.asarray(r0["train"] + r0["eval"])
+        want = np.asarray(o["train"] + o["eval"])
+        if not np.isfinite(got).all():
+            raise AssertionError(f"{tag}: a logged value is not finite: {got}")
+        w2 = dict(np.load(Path(ranks_spec["out"]) / f"{tag}.npz"))
+        w1 = dict(np.load(Path(one_spec["out"]) / f"{tag}.npz"))
+        held = ["logs"] if fp64 and not reported else []
+        e = {"logs": used(got, want), "weights": 0.0, "state": 0.0}
+        absolute = {"logs": float(np.abs(got - want).max()), "weights": 0.0, "state": 0.0}
+        for k in w1:
+            if k == "cache":
+                if not np.array_equal(w2[k], w1[k]):
+                    raise AssertionError(f"{tag}: the sharded cache differs from the one-process "
+                                         f"cache (max {np.abs(w2[k] - w1[k]).max():.3e})")
+                log(f"  {tag}: the sharded cache ({w1[k].shape}) equals the one-process cache "
+                    "bitwise")
+                continue
+            step_group = k.split("/")[0] in ("loss", "grad", "flow64", "state64")
+            group = k.split("/")[0] if step_group else (
+                "state" if k.rsplit(".", 1)[-1] in ("u", "v", "mean", "var") else "weights")
+            e[group] = max(e.get(group, 0.0), used(w2[k], w1[k], over_largest=group == "grad"))
+            absolute[group] = max(absolute.get(group, 0.0),
+                                  float(np.abs(w2[k].astype(np.float64) - w1[k]).max(initial=0)))
+            if (fp64 and not reported) or step_group:
+                held.append(group)
+        held = sorted(set(held))
+        bad = [g for g in held if e[g] > 1.0]
+        log(f"  {tag}: ranks agree exactly, rank 0 alone wrote ({len(r0['checkpoints'])} "
+            f"checkpoints); two ranks vs one process, {'fp64' if fp64 else 'fp32'}, max abs "
+            f"and the largest share of the bound (rtol {PAR_TOL['rtol']}, atol "
+            f"{PAR_TOL['atol']}) an element takes (grad: of its tensor's largest): "
+            + ", ".join(f"{g} {absolute[g]:.3e} ({e[g]:.3g})" for g in e)
+            + f"; held: {held or 'none'}" + (" (the rest reported)" if held != sorted(e) else "")
+            + (" ok" if not bad else " FAIL"))
+        if bad:
+            raise AssertionError(f"{tag}: two ranks differ from one process beyond PAR_TOL in "
+                                 f"{bad}")
+        errs[tag] = e
+        for sp in (one_spec, ranks_spec):
+            (Path(sp["out"]) / f"{tag}.npz").unlink()
+    return errs
+
+
 def _timeline_library(lib):
     from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
 
@@ -3022,36 +3686,53 @@ def main() -> int:
         t0 = time.perf_counter()
         c_launches, c_device_launches, cached_train_step = phase_train_cached(
             card, Path(tmp), str(Path(tmp) / "models"))
-    log(f"  phase 4i took {time.perf_counter() - t0:.2f} s")
+        log(f"  phase 4i took {time.perf_counter() - t0:.2f} s")
+        log("== 4j. data parallelism (BAIR preset: serving replicas; the training processes "
+            "run in phase 7)")
+        t0 = time.perf_counter()
+        dp_launches, dp_device_launches = phase_dp_serving(card)
+        log(f"  DP serving took {time.perf_counter() - t0:.2f} s")
 
-    log("== 5. timings")
-    rows = phase_timings(card, models, x0, residual)
-    log("== 5b. transfer timings (landscape preset)")
-    t_rows = phase_transfer_timings(card, t_models, q, t_x0)
+        log("== 5. timings")
+        rows = phase_timings(card, models, x0, residual)
+        log("== 5b. transfer timings (landscape preset)")
+        t_rows = phase_transfer_timings(card, t_models, q, t_x0)
 
-    log("== 6. traces")
-    sampler, transfer = models["bfloat16"], t_models["bfloat16"]
-    sampler.vid_length = 16
-    phase_trace(card, "Model.forward bs=6 T=16 bf16",
-                lambda: sampler.forward(x0, residual=residual),
-                "trace_model_forward_bf16.json", "embedder, input")
-    phase_trace(card, "Model.transfer landscape bs=6 T=16 bf16",
-                lambda: transfer.transfer(q, t_x0),
-                "trace_model_transfer_bf16.json", "encoder, query embedder, input")
-    phase_trace(card, "eval synthesis step bs=6 fp32", synthesis_step,
-                "trace_eval_synthesis_step.json", "embedder, input")
-    phase_trace(card, "stage-2 train step bs=50 fp32", train_step, "trace_train_step.json",
-                "no chain in a step", spans=TRAIN_SPANS)
-    phase_trace(card, "stage-2 cached train step bs=50 fp32", cached_train_step,
-                "trace_train_cached_step.json", "no chain in a step", spans=CACHED_SPANS)
-    phase_trace(card, "stage-1 train step bs=10 fp32", s1_train_step,
-                "trace_train_stage1_step.json", "no chain in a step", spans=S1_SPANS)
-    phase_trace(card, "stage-2 AE train step bs=30 fp32", ae_train_step,
-                "trace_train_ae_step.json", "no chain in a step", spans=AE_SPANS)
+        log("== 6. traces")
+        sampler, transfer = models["bfloat16"], t_models["bfloat16"]
+        sampler.vid_length = 16
+        phase_trace(card, "Model.forward bs=6 T=16 bf16",
+                    lambda: sampler.forward(x0, residual=residual),
+                    "trace_model_forward_bf16.json", "embedder, input")
+        phase_trace(card, "Model.transfer landscape bs=6 T=16 bf16",
+                    lambda: transfer.transfer(q, t_x0),
+                    "trace_model_transfer_bf16.json", "encoder, query embedder, input")
+        phase_trace(card, "eval synthesis step bs=6 fp32", synthesis_step,
+                    "trace_eval_synthesis_step.json", "embedder, input")
+        phase_trace(card, "stage-2 train step bs=50 fp32", train_step, "trace_train_step.json",
+                    "no chain in a step", spans=TRAIN_SPANS)
+        phase_trace(card, "stage-2 cached train step bs=50 fp32", cached_train_step,
+                    "trace_train_cached_step.json", "no chain in a step", spans=CACHED_SPANS)
+        phase_trace(card, "stage-1 train step bs=10 fp32", s1_train_step,
+                    "trace_train_stage1_step.json", "no chain in a step", spans=S1_SPANS)
+        phase_trace(card, "stage-2 AE train step bs=30 fp32", ae_train_step,
+                    "trace_train_ae_step.json", "no chain in a step", spans=AE_SPANS)
+
+        # the card to the training processes: this process's models go first
+        del models, t_models, sampler, transfer, synthesis_step, train_step
+        del cached_train_step, s1_train_step, ae_train_step
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== 7. multi-process training (phase 4j's second half: BAIR preset, the trainers' "
+            "mains in one process and in two ranks)")
+        log(f"  this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card")
+        t0 = time.perf_counter()
+        phase_parallel_train(card, Path(tmp))
+        log(f"  multi-process training took {time.perf_counter() - t0:.2f} s")
 
     # each kernel at the shape its path gives it, in that path's mode (bf16
     # weights): the reverse at the BAIR sampling path's B=6, E=64, the forward
-    # at the transfer's one query, B=1, E=128; launches over all ten windows;
+    # at the transfer's one query, B=1, E=128; launches over all thirteen windows;
     # beside them each in the training path's fp32-weight mode at B=10, E=64
     kernels = []
     for name, line, r, shape, err_key in (
@@ -3065,12 +3746,12 @@ def main() -> int:
             "replaces": f"{PALLAS_KERNEL}:{line}",
             "launches": (launches[name] + t_launches[name] + e_launches[name] + tr_launches[name]
                          + s1_launches[name] + ae_launches[name] + ep_launches[name]
-                         + ref_launches[name] + c_launches[name]),
+                         + ref_launches[name] + c_launches[name] + dp_launches[name]),
             "device_launches": (device_launches[name] + t_device_launches[name]
                                 + e_device_launches[name] + tr_device_launches[name]
                                 + s1_device_launches[name] + ae_device_launches[name]
                                 + ep_device_launches[name] + ref_device_launches[name]
-                                + c_device_launches[name]),
+                                + c_device_launches[name] + dp_device_launches[name]),
             "shape": f"{shape} hidden 512 20 blocks, bf16 weights",
             "max_abs_err": errs[err_key],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3086,4 +3767,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--par-rank"]:  # a process that phase 4j spawns
+        sys.exit(par_worker(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

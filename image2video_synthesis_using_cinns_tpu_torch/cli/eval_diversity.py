@@ -4,14 +4,15 @@ root ``eval_diversity.py``)::
     python -m image2video_synthesis_using_cinns_tpu_torch.cli.eval_diversity \
         -dataset bair -data_path DATA/ [-ckpt_path DIR/] [-seq_length 16] [-bs 6] \
         [-n_realiz 5] [-VGG 1] [-I3D 1] [-DTI3D 1] [-compute_dtype bfloat16] \
-        [-device cuda] [-gpu 0]
+        [-device cuda] [-gpu 0] [-data_parallel]
 
 Seed 249; each eval batch is sampled ``-n_realiz`` times and fed to a
 ``DiversityStream``. The residuals nu are drawn up front realisation-major
 (every batch of realisation 0, then of realisation 1, ...), so each
 (realisation, batch) pair gets the noise the reference's realisation-major
 loop gave it, while the loop runs batch-major. ``-device`` defaults to
-``cuda``; ``-data_parallel`` and ``-spatial_shard`` raise.
+``cuda``; ``-data_parallel`` splits each batch over the serving replicas and
+``-spatial_shard`` raises, as in ``generate_samples``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import argparse
 
 import torch
 
-from .generate_samples import add_serving_flags, serving_device
+from .generate_samples import add_serving_flags, serving_options
 
 
 def evaluate(model, loader, stream, n_realiz: int) -> dict[str, float]:
@@ -49,7 +50,7 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("-VGG", type=bool)
     parser.add_argument("-DTI3D", type=bool)
     args = parser.parse_args(argv)
-    device = serving_device(args)
+    serving = serving_options(args)
 
     from ..data import get_eval_loader
     from ..data.framestore import open_or_build
@@ -62,7 +63,7 @@ def main(argv: list[str] | None = None) -> None:
     path_ds = f"{args.dataset}/{args.texture}/" if args.dataset == "DTDB" else args.dataset
     ckpt_path = args.ckpt_path or f"./models/{path_ds}/stage2/"
     model = Model(ckpt_path, args.seq_length, seed=249, compute_dtype=args.compute_dtype,
-                  device=device)
+                  **serving)
     dataset = get_eval_loader(args.dataset, args.seq_length, args.data_path, model.config)
     fs = open_or_build(dataset, model.config.Data.get("framestore", "off"), "test")
     loader = Loader(dataset, args.bs, shuffle=False, drop_last=False, workers=10, framestore=fs)

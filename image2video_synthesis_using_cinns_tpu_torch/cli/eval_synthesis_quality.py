@@ -4,15 +4,15 @@ the root ``eval_synthesis_quality.py``)::
     python -m image2video_synthesis_using_cinns_tpu_torch.cli.eval_synthesis_quality \
         -dataset bair -data_path DATA/ [-ckpt_path DIR/] [-seq_length 16] [-bs 6] \
         [-FID 1] [-LPIPS 1] [-FVD 1] [-DTFVD 1] [-compute_dtype bfloat16] \
-        [-device cuda] [-gpu 0]
+        [-device cuda] [-gpu 0] [-data_parallel]
 
 Seed 249; the eval loader reads ``seq_length + 1`` frames per clip; the
 dataset's frame concatenation (BAIR: GT frame 0 prepended, the last
 generated frame dropped; iPER: GT frame 0 prepended; the others: the
 generated frames) feeds a ``SynthesisQualityStream``, whose backbones load
 from ``models/`` (a missing I3D or Inception file raises). ``-device``
-defaults to ``cuda``; ``-data_parallel`` and ``-spatial_shard`` raise, as in
-``generate_samples``.
+defaults to ``cuda``; ``-data_parallel`` splits each batch over the serving
+replicas and ``-spatial_shard`` raises, as in ``generate_samples``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import argparse
 
 import torch
 
-from .generate_samples import add_serving_flags, serving_device
+from .generate_samples import add_serving_flags, serving_options
 
 
 def clip_pairs(dataset: str, seq: torch.Tensor, gen: torch.Tensor):
@@ -58,7 +58,7 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("-DTFVD", type=bool)
     parser.add_argument("-LPIPS", type=bool)
     args = parser.parse_args(argv)
-    device = serving_device(args)
+    serving = serving_options(args)
 
     from ..data import get_eval_loader
     from ..data.framestore import open_or_build
@@ -71,7 +71,7 @@ def main(argv: list[str] | None = None) -> None:
     path_ds = f"{args.dataset}/{args.texture}/" if args.dataset == "DTDB" else args.dataset
     ckpt_path = args.ckpt_path or f"./models/{path_ds}/stage2/"
     model = Model(ckpt_path, args.seq_length, seed=249, compute_dtype=args.compute_dtype,
-                  device=device)
+                  **serving)
     dataset = get_eval_loader(args.dataset, args.seq_length + 1, args.data_path, model.config)
     fs = open_or_build(dataset, model.config.Data.get("framestore", "off"), "test")
     loader = Loader(dataset, args.bs, shuffle=False, drop_last=False, workers=10, framestore=fs)

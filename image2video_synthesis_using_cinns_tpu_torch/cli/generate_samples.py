@@ -3,15 +3,18 @@
 
     python -m image2video_synthesis_using_cinns_tpu_torch.cli.generate_samples \
         -dataset bair [-ckpt_path DIR/] [-seq_length 16] [-bs 6] [-seed 0] \
-        [-compute_dtype bfloat16] [-device cuda] [-gpu 0]
+        [-compute_dtype bfloat16] [-device cuda] [-gpu 0] [-data_parallel]
 
 Reads every jpg/png/jpeg start frame under ``assets/GT_samples/<dataset>``
 (``<dataset>/<texture>`` for DTDB), scales it to [-1, 1] and resizes it to the
 model's image size, samples videos in batches of ``-bs`` and writes
 ``assets/results/<path>/results.gif``. The checkpoint directory defaults to
 ``models/<path>/stage2/``. ``-device`` defaults to ``cuda`` (``-gpu`` picks the
-card); ``-data_parallel`` and ``-spatial_shard`` are kept on the parser and
-raise, since multi-device serving is not ported yet.
+card). ``-data_parallel`` serves one replica per card over every visible
+card, splitting each batch across them (``Model(data_parallel=True)``;
+``CUDA_VISIBLE_DEVICES`` picks the cards). ``-spatial_shard`` (the
+width-sharded decoder) is kept on the parser and raises: it is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -40,19 +43,26 @@ def add_serving_flags(parser: argparse.ArgumentParser) -> None:
                         help="decoder dtype (the encoder, embedder and flow stay fp32)")
     parser.add_argument("-device", type=str, default="cuda", help="cuda or cpu")
     parser.add_argument("-data_parallel", action="store_true",
-                        help="not ported yet: raises (ROADMAP slice 10)")
+                        help="serve one replica per card over every visible card, each batch "
+                             "split across them")
     parser.add_argument("-spatial_shard", type=int, default=0,
-                        help="not ported yet: raises (ROADMAP slice 10)")
+                        help="not ported yet: raises (ROADMAP slice 11)")
 
 
 def serving_device(args: argparse.Namespace) -> str:
-    """The device the flags ask for; raises on the multi-device flags."""
-    if args.data_parallel or args.spatial_shard:
-        raise NotImplementedError("-data_parallel and -spatial_shard: multi-device serving is "
-                                  "not ported yet (ROADMAP slice 10, parallelism)")
+    """The device the flags ask for; raises on ``-spatial_shard``."""
+    if args.spatial_shard:
+        raise NotImplementedError(
+            "-spatial_shard: the width-sharded decoder is not ported yet (ROADMAP slice 11)"
+            + (", with or without -data_parallel" if args.data_parallel else ""))
     if args.device == "cuda" and args.gpu is not None:
         return f"cuda:{int(args.gpu)}"
     return args.device
+
+
+def serving_options(args: argparse.Namespace) -> dict:
+    """``Model``'s ``device`` and ``data_parallel`` as the flags ask for them."""
+    return {"device": serving_device(args), "data_parallel": args.data_parallel}
 
 
 def read_frames(names: list[str], img_res: int) -> np.ndarray:
@@ -86,7 +96,7 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("-texture", type=str, help="Specify texture when using DTDB")
     parser.add_argument("-seed", type=int, default=0)
     args = parser.parse_args(argv)
-    device = serving_device(args)
+    serving = serving_options(args)
 
     import imageio
 
@@ -96,7 +106,7 @@ def main(argv: list[str] | None = None) -> None:
     path_ds = f"{args.dataset}/{args.texture}" if args.dataset == "DTDB" else args.dataset
     ckpt_path = args.ckpt_path or f"./models/{path_ds}/stage2/"
     model = Model(ckpt_path, args.seq_length, seed=args.seed,
-                  compute_dtype=args.compute_dtype, device=device)
+                  compute_dtype=args.compute_dtype, **serving)
     imgs = load_images(f"./assets/GT_samples/{path_ds}/", model.config_stage1.Data["img_size"])
 
     bs = args.bs

@@ -3,15 +3,16 @@
 
     python -m image2video_synthesis_using_cinns_tpu_torch.cli.generate_transfer \
         -dataset landscape [-ckpt_path DIR/] [-seq_length 16] \
-        [-compute_dtype bfloat16] [-device cuda] [-gpu 0]
+        [-compute_dtype bfloat16] [-device cuda] [-gpu 0] [-data_parallel]
 
 Reads one frame sequence per folder of ``assets/GT_samples/landscape/transfer/``
 (folders and frames in natural order, at most ``-seq_length`` frames each),
 transfers each query video's motion onto the first frames of all videos, in
 batches of 6 (the reference parses ``-bs`` but batches by 6), prepends the
 query's own row and writes ``assets/results/landscape/transfer_<idx>.gif``.
-``-device``, ``-gpu``, ``-data_parallel`` and ``-spatial_shard`` are as in
-``generate_samples``.
+``-device``, ``-gpu``, ``-data_parallel`` (the start frames split across the
+replicas; the query is encoded once) and ``-spatial_shard`` (raises) are as
+in ``generate_samples``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import re
 
 import numpy as np
 
-from .generate_samples import IMG_SUFFIX, add_serving_flags, read_frames, serving_device
+from .generate_samples import IMG_SUFFIX, add_serving_flags, read_frames, serving_options
 
 
 def natsorted(items):
@@ -40,7 +41,7 @@ def main(argv: list[str] | None = None) -> None:
     args = parser.parse_args(argv)
     if args.dataset != "landscape":
         parser.error("Only implemented for landscape")
-    device = serving_device(args)
+    serving = serving_options(args)
 
     import imageio
 
@@ -49,7 +50,7 @@ def main(argv: list[str] | None = None) -> None:
 
     ckpt_path = args.ckpt_path or f"./models/{args.dataset}/stage2/"
     model = Model(ckpt_path, args.seq_length, transfer=True, compute_dtype=args.compute_dtype,
-                  device=device)
+                  **serving)
     img_res = model.config_stage1.Data["img_size"]
 
     img_path = f"./assets/GT_samples/{args.dataset}/transfer/"

@@ -6,7 +6,9 @@
 
 ``-device`` defaults to ``cuda``; ``-device cpu`` trains on the CPU.
 ``-gpu`` is accepted and ignored, as in the root CLI: pick the card with
-``-device cuda:N``.
+``-device cuda:N``. With ``Training.distributed`` set, run one process per
+card (``torchrun``, or one config per process: ``parallel/distributed.py``);
+``-device cuda`` then means each rank's own card.
 """
 
 from __future__ import annotations

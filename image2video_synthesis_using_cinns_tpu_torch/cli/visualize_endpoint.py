@@ -4,7 +4,7 @@ root ``visualize_endpoint.py``; BAIR only)::
     python -m image2video_synthesis_using_cinns_tpu_torch.cli.visualize_endpoint \
         -dataset bair -data_path DATA/ [-ckpt_path DIR/] [-seq_length 16] \
         [-n_samples 15] [-n_realiz 8] [-bs 6] [-compute_dtype bfloat16] \
-        [-device cuda] [-gpu 0]
+        [-device cuda] [-gpu 0] [-data_parallel]
 
 Loads the control model (``models/bair/stage2_control/`` by default), reads
 the BAIR endpoint test split (``seq_length + 1`` frames a clip and the
@@ -12,8 +12,8 @@ end-effector target of its last frame), and for each of ``-n_realiz``
 realisations samples ``Model(x0, cond=target)`` over the batches until
 ``-n_samples`` videos; writes ``assets/results/bair_endpoint/endpoint_<i>.gif``
 (the realisations side by side) and ``endpoint_<i>.png`` (their last frames).
-``-device`` defaults to ``cuda``; ``-data_parallel`` and ``-spatial_shard``
-raise, as in ``generate_samples``.
+``-device`` defaults to ``cuda``; ``-data_parallel`` splits each batch over
+the serving replicas and ``-spatial_shard`` raises, as in ``generate_samples``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import os
 import numpy as np
 import torch
 
-from .generate_samples import add_serving_flags, serving_device
+from .generate_samples import add_serving_flags, serving_options
 
 SAVE_PATH = "./assets/results/bair_endpoint/"
 
@@ -76,7 +76,7 @@ def main(argv: list[str] | None = None) -> None:
     args = parser.parse_args(argv)
     if args.dataset != "bair":
         raise ValueError("endpoint control is trained on BAIR only (-dataset bair)")
-    device = serving_device(args)
+    serving = serving_options(args)
 
     from ..data import get_eval_loader
     from ..data.framestore import open_or_build
@@ -84,7 +84,7 @@ def main(argv: list[str] | None = None) -> None:
     from ..models.facade import Model
 
     ckpt_path = args.ckpt_path or f"./models/{args.dataset}/stage2_control/"
-    model = Model(ckpt_path, args.seq_length, compute_dtype=args.compute_dtype, device=device)
+    model = Model(ckpt_path, args.seq_length, compute_dtype=args.compute_dtype, **serving)
     dataset = get_eval_loader(args.dataset, args.seq_length + 1, args.data_path, model.config,
                               control=True)
     fs = open_or_build(dataset, model.config.Data.get("framestore", "off"), "test")

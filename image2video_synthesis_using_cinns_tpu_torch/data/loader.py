@@ -11,8 +11,10 @@ streams as the JAX ``Loader``: the epoch's order from
 bitwise. The posterior-cache input mode (``frames_per_item``,
 ``with_meta``) reads only the first frames of each sampled window and ships
 the window's identity with the batch (``train/posterior_cache.py``).
-Multi-host sharding (``process_index``/``process_count``,
-``tail_multiple``) belongs to a later slice.
+Multi-process runs (``parallel/distributed.py``): every rank computes the
+same global batch order from the shared seed and decodes only its block of
+rows of each batch (``process_index``/``process_count``); ``tail_multiple``
+drops, with one warning, a last batch that does not divide it.
 """
 
 from __future__ import annotations
@@ -63,8 +65,9 @@ class Loader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, workers: int = 8, seed: int = 0,
-                 prefetch: int = 4, framestore=None, frames_per_item: int | None = None,
-                 with_meta: bool = False):
+                 prefetch: int = 4, framestore=None, process_index: int = 0,
+                 process_count: int = 1, tail_multiple: int | None = None,
+                 frames_per_item: int | None = None, with_meta: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -73,13 +76,30 @@ class Loader:
         self.seed = seed
         self.prefetch = prefetch
         self.framestore = framestore
+        self.process_index = process_index
+        self.process_count = process_count
+        self.tail_multiple = tail_multiple
+        self._warned_tail = False
         self.frames_per_item = frames_per_item
         self.with_meta = with_meta
 
     def __len__(self) -> int:
         n = len(self.dataset)
         full, rem = n // self.batch_size, n % self.batch_size
-        return full if self.drop_last else full + (1 if rem else 0)
+        if self.drop_last or not rem:
+            return full
+        if self.tail_multiple is not None and rem % self.tail_multiple:
+            if not self._warned_tail:
+                import warnings
+
+                warnings.warn(
+                    f"multi-host run: dropping the tail batch of {rem} clips "
+                    f"(not divisible by the {self.tail_multiple}-device mesh; "
+                    "pad rows cannot be assembled per-process — see "
+                    "parallel/distributed.py)")
+                self._warned_tail = True
+            return full
+        return full + 1
 
     def _load_item(self, idx: int, rng: np.random.Generator):
         item = self.dataset.sample(idx, rng)
@@ -101,6 +121,12 @@ class Loader:
             rng.shuffle(order)
         batches_idx = [order[i * self.batch_size : (i + 1) * self.batch_size]
                        for i in range(len(self))]
+        if self.process_count > 1:
+            from ..parallel.distributed import host_batch_slice
+
+            batches_idx = [idxs[host_batch_slice(len(idxs), self.process_index,
+                                                 self.process_count)]
+                           for idxs in batches_idx]
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

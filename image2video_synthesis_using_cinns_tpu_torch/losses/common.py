@@ -53,9 +53,12 @@ def _gaussian_kernel(size: int, sigma: float, like: torch.Tensor) -> torch.Tenso
 
 
 def ssim(pred: torch.Tensor, target: torch.Tensor, kernel_size: int = 11, sigma: float = 1.5,
-         k1: float = 0.01, k2: float = 0.03) -> torch.Tensor:
-    """SSIM of (B, C, H, W) images, averaged over every valid window."""
-    data_range = target.max() - target.min()
+         k1: float = 0.01, k2: float = 0.03,
+         data_range: torch.Tensor | None = None) -> torch.Tensor:
+    """SSIM of (B, C, H, W) images, averaged over every valid window;
+    ``data_range`` defaults to the target's max - min over the batch."""
+    if data_range is None:
+        data_range = target.max() - target.min()
     c1, c2 = (k1 * data_range) ** 2, (k2 * data_range) ** 2
     c = pred.shape[1]
     kernel = _gaussian_kernel(kernel_size, sigma, pred).expand(c, 1, kernel_size, kernel_size)

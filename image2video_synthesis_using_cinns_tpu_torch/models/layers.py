@@ -25,6 +25,13 @@ unbiased variance) only inside ``updating_batch_stats``, the port of the JAX
 trainers' pass with ``batch_stats`` mutable. ``nn.BatchNorm2d`` in train
 mode would move them on every forward.
 
+While a process group of more than one rank is live
+(``parallel/distributed.py``), batch statistics are the global batch's: the
+train-mode ``BatchNorm`` (its gradient flows through the all-reduce, as in
+``SyncBatchNorm``, and its running statistics move by the global ones) and
+the ActNorm init, as the JAX package's ``jnp.mean`` over a sharded batch
+axis is global.
+
 Weights use torch's layout: a conv weight is (out, in, *k), a dense weight
 is (out, in). Random initialisation follows torch's defaults (uniform in
 +-1/sqrt(fan_in)), the same distribution the JAX package draws from;
@@ -43,6 +50,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import spectral as sn
+from ..parallel import distributed
 
 
 def _uniform_(t: torch.Tensor, fan_in: int) -> None:
@@ -218,9 +226,8 @@ class BatchNorm(nn.Module):
         x32 = x.to(_stats_dtype(x))
         if train:
             dims = [0] + list(range(2, x.ndim))
-            var, mean = torch.var_mean(x32, dim=dims, unbiased=False)
+            mean, var, n = distributed.batch_moments(x32, dims)
             if self.update_stats:
-                n = x.numel() // x.shape[1]
                 m = self.momentum
                 with torch.no_grad():
                     self.mean.copy_((1 - m) * self.mean + m * mean)
@@ -252,7 +259,8 @@ class ActNormImage(nn.Module):
     """Per-channel affine ``scale * (x + loc)``. While ``initializing`` is set
     (``init_actnorm``), a forward first sets ``loc = -mean`` and
     ``scale = 1 / (std + 1e-6)`` from its input's per-channel statistics
-    over (B, *spatial), std with ddof 1 (``models/layers.py:436-470``)."""
+    over (B, *spatial), std with ddof 1 (``models/layers.py:436-470``), over
+    the global batch in a multi-process run."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -265,8 +273,9 @@ class ActNormImage(nn.Module):
             with torch.no_grad():
                 x32 = x.to(_stats_dtype(x))
                 dims = [0] + list(range(2, x.ndim))
-                self.loc.copy_(-x32.mean(dims))
-                self.scale.copy_(1.0 / (x32.std(dims, correction=1) + 1e-6))
+                mean, var, _ = distributed.batch_moments(x32, dims, correction=1)
+                self.loc.copy_(-mean)
+                self.scale.copy_(1.0 / (var.sqrt() + 1e-6))
         return _per_channel(self.scale, x) * (x + _per_channel(self.loc, x))
 
 

@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.cuda import flow_kernel
+from ...parallel import distributed
 
 LRELU_SLOPE = flow_kernel.LRELU_SLOPE
 INV_LRELU_ALPHA = flow_kernel.INV_LRELU_ALPHA
@@ -106,11 +107,12 @@ def actnorm_init(blocks, shuffle, x, embedding, xmask):
     each block in turn, ``loc = -mean`` and ``scale = 1 / (std + 1e-6)`` with
     the unbiased std over the batch of that block's input, which is computed
     through the chain with the new values. Returns (locs, scales), each
-    (n_flows, C)."""
+    (n_flows, C). In a multi-process run the mean and the std are the global
+    batch's (``distributed.batch_moments``: two passes, N - 1 of the global N)."""
     locs, scales = [], []
     for i in range(blocks["loc"].shape[0]):
-        loc = -x.mean(dim=0)
-        scale = 1.0 / (x.std(dim=0, correction=1) + 1e-6)
+        mean, var, _ = distributed.batch_moments(x, [0], correction=1)
+        loc, scale = -mean, 1.0 / (var.sqrt() + 1e-6)
         x = (x + loc) * scale
         x = torch.where(x >= 0, x, INV_LRELU_ALPHA * x)
         x, _ = _coupling(blocks["coupling"], i, 0, x, embedding, xmask[i], False)

@@ -16,7 +16,9 @@ what a user of the released models holds, for the converter to read.
 
 from __future__ import annotations
 
+import contextlib
 import os
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -92,11 +94,38 @@ def configs(preset: str, control: bool = False) -> tuple[Config, Config, Config]
 
 def build_model(preset: str = "bair", vid_length: int = 16, seed: int = 0,
                 use_kernel: bool = True, compute_dtype: str = "float32",
-                control: bool = False, transfer: bool = False, device=None) -> Model:
+                control: bool = False, transfer: bool = False, device=None,
+                data_parallel: bool | list = False) -> Model:
     """A ``Model`` of ``preset`` with random weights drawn from ``seed``."""
     stage2, stage1, ae = configs(preset, control)
     return Model.from_configs(stage2, stage1, ae, vid_length, transfer=transfer, seed=seed,
-                              use_kernel=use_kernel, compute_dtype=compute_dtype, device=device)
+                              use_kernel=use_kernel, compute_dtype=compute_dtype, device=device,
+                              data_parallel=data_parallel)
+
+
+@contextlib.contextmanager
+def float64_training(trainer) -> Iterator[None]:
+    """Within: the trainer module ``trainer`` (``train.stage1`` or
+    ``train.stage2_ae``) builds its models in float64 and its augment gives
+    float64 batches, so that its ``main`` runs in fp64 from the same seeded
+    weights: the multi-process checks hold two ranks to one process there,
+    where the order of a sum cannot move a rounding far (in fp32 Adam's
+    first steps turn rounding on a near-zero gradient into a step of about
+    lr either way)."""
+    build, augment = trainer.build_models, trainer.build_augment
+
+    def build64(*args, **kwargs):
+        return build(*args, **kwargs).to(torch.float64)
+
+    def augment64(*args, **kwargs):
+        f = augment(*args, **kwargs)
+        return lambda *a, **k: f(*a, **k).to(torch.float64)
+
+    trainer.build_models, trainer.build_augment = build64, augment64
+    try:
+        yield
+    finally:
+        trainer.build_models, trainer.build_augment = build, augment
 
 
 # -- reference-layout checkpoints ------------------------------------------------------------

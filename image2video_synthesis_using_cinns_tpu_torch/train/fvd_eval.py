@@ -18,6 +18,12 @@ in the JAX package (``imageio`` may be missing), and its failure goes to
 encoder's posterior sample of frames 1: with one fixed eps (the caller's
 ``noise``: the JAX package draws it from ``PRNGKey(1)`` for every batch),
 decoded from frame 0, scored against frames 1:.
+
+In a multi-process run each rank streams the activations of its rows of
+every eval batch, and the ranks' activations are pooled
+(``distributed.process_allgather``, as the JAX package's
+``multihost_utils.process_allgather``), so every rank scores the whole eval
+set and their best-checkpoint choices agree; rank 0 alone writes the GIF.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 
 from ..metrics import fvd as fvd_mod
 from ..metrics.frechet import frechet_from_activations
+from ..parallel import distributed
 
 
 def _stream_fvd(run, loader, model: fvd_mod.I3DModel, keep_clips: int = 0):
@@ -52,6 +59,9 @@ def _stream_fvd(run, loader, model: fvd_mod.I3DModel, keep_clips: int = 0):
         acts_o.append(act_fn(o))
     act1 = torch.cat(acts_g).cpu().numpy()
     act2 = torch.cat(acts_o).cpu().numpy()
+    if distributed.world() > 1:  # Fréchet statistics do not depend on the rows' order
+        act1 = distributed.process_allgather(act1).reshape(-1, act1.shape[-1])
+        act2 = distributed.process_allgather(act2).reshape(-1, act2.shape[-1])
     host_g = torch.cat(host_g).numpy() if host_g else None
     host_o = torch.cat(host_o).numpy() if host_o else None
     return act1, act2, host_g, host_o
@@ -85,6 +95,12 @@ def evaluate_FVD_prior(loader, aug, network, decoder, z_dim: int, opt, epoch: in
         return decoder(x0, z).permute(0, 2, 1, 3, 4), seq[:, 1:].permute(0, 1, 4, 2, 3)
 
     act1, act2, gen, orig = _stream_fvd(run, loader, model, keep_clips=40)
+    if distributed.is_primary():
+        _dump(opt, gen, orig, epoch, on_dump_error, wandb_sink)
+    return float(frechet_from_activations(np.asarray(act1), np.asarray(act2)))
+
+
+def _dump(opt, gen, orig, epoch: int, on_dump_error, wandb_sink) -> None:
     try:
         from ..utils.video import plot_vid
 
@@ -95,7 +111,6 @@ def evaluate_FVD_prior(loader, aug, network, decoder, z_dim: int, opt, epoch: in
             wandb_sink.log_video("eval_video", gif)
     except Exception as e:  # the GIF dump is best effort, as in the JAX package
         on_dump_error(e)
-    return float(frechet_from_activations(np.asarray(act1), np.asarray(act2)))
 
 
 def evaluate_FVD_posterior(loader, aug, decoder, encoder, mode: str = "FVD",

@@ -14,6 +14,12 @@ at step 1 and drift apart after it (every stage-2 config sets ``amsgrad``).
 from the layout that ``flax.serialization.to_state_dict`` gives the JAX
 chain's state, so checkpoints pass between the packages. ``LRController``
 is the host-side scheduler, copied as it is.
+
+In a multi-process run ``Adam.step`` first averages the gradients over the
+ranks (``parallel/distributed.all_reduce_mean_``: one all-reduce of a flat
+buffer), so every rank takes the step of the global batch. The trainers set
+their gradients with ``torch.autograd.grad`` as well as ``backward``, which
+``DistributedDataParallel``'s reducer would not see.
 """
 
 from __future__ import annotations
@@ -23,11 +29,14 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from ..parallel import distributed
+
 
 class Adam(torch.optim.Optimizer):
     """The JAX package's ``adam_torch`` chain. One step count for all
     parameters (optax's ``count``); per parameter ``mu``, ``nu`` and, with
-    ``amsgrad``, ``nu_max``."""
+    ``amsgrad``, ``nu_max``. The gradients are averaged over the ranks of a
+    multi-process run before the step (a no-op in one process)."""
 
     def __init__(self, params, lr: float, betas: tuple[float, float] = (0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 0.0, amsgrad: bool = False):
@@ -54,6 +63,8 @@ class Adam(torch.optim.Optimizer):
         if closure is not None:
             raise ValueError("Adam.step takes no closure")
         self.count += 1
+        distributed.all_reduce_mean_([p.grad for g in self.param_groups for p in g["params"]
+                                      if p.grad is not None])
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
             if not params:

@@ -22,8 +22,10 @@ oversampling) are deduplicated: ``WindowIndex`` keys unique videos by
 maps onto the same rows, so the cache's size and build time do not depend
 on the oversampling factor.
 
-The multi-process assembly of sharded builds belongs to the port's
-parallelism slice; ``build_cache(shard=(i, n))`` itself is here.
+In a multi-process run each rank encodes its share of the unique videos
+(``build_cache(shard=(rank, world))``) and ``assemble_cache_multiprocess``
+sums the partial tables, zeros off each shard, into the whole one on every
+rank: each row has one owner, so the sum is exact.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from ..data.loader import _imread_rgb
+from ..parallel import distributed
 
 
 class WindowIndex:
@@ -155,6 +158,17 @@ def build_cache(encoder, dataset, seq_length: int, augment, read_clips, *,
             out[torch.from_numpy(ids.reshape(-1)).to(param.device)] = (
                 mom.reshape(len(chunk) * n_w, 2, -1).float())
     return out
+
+
+def assemble_cache_multiprocess(partial: torch.Tensor) -> torch.Tensor:
+    """The whole moment table from the ranks' partial ones (zeros off each
+    rank's shard), on every rank, on ``partial``'s device: every rank's table
+    gathered through the host group (JAX's ``process_allgather``), then
+    summed in fp32, where each row adds zeros to its one owner's values, so
+    the sum is exact. Callers barrier first: the sharded builds are long and
+    communication-free."""
+    stacked = distributed.process_allgather(partial.cpu().numpy())
+    return torch.from_numpy(stacked.sum(axis=0, dtype=np.float32)).to(partial.device)
 
 
 def resample_posterior(mu: torch.Tensor, logvar: torch.Tensor, eps: torch.Tensor,

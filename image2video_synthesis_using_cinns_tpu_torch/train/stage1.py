@@ -26,10 +26,16 @@ decoder against the temporal and patch discriminators.
 
 Every random draw comes from ``Draws`` (CPU generators keyed by purpose,
 epoch and batch); tests subclass it to inject the JAX trainer's draws.
-``Training.distributed`` raises (ROADMAP slice 10); ``fused_step`` and
-``steps_per_dispatch``, TPU dispatch fusion whose steps equal single steps,
-are ignored. ``train`` runs built modules over given loaders;
-``main`` builds them from the config. On a CUDA device TF32 is off.
+``fused_step`` and ``steps_per_dispatch``, TPU dispatch fusion whose steps
+equal single steps, are ignored. ``train`` runs built modules over given
+loaders; ``main`` builds them from the config. On a CUDA device TF32 is off.
+
+``Training.distributed`` runs one process per card, as in ``stage2.py``:
+each rank's loaders decode its rows, every draw is made for the global batch
+(the patch indices too) and sliced, the patch discriminator's ActNorm init
+gathers the global batch's first 20 frames onto every rank, every logged
+metric is the global mean, the posterior FVD pools the ranks' activations,
+and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from ..models.layers import ActNormImage, init_actnorm
 from ..models.stage1.decoder import Generator
 from ..models.stage1.patch_disc import NLayerDiscriminator
 from ..models.stage1.resnet3d import Discriminator, Encoder
+from ..parallel import distributed
 from ..utils import checkpoint as ckpt_io
 from ..utils import convert
 from ..utils.logging import CSVlogger, Logging, WandbSink
@@ -179,21 +186,16 @@ def networks(models: Stage1Models) -> dict:
             "DISC_s": models.disc_s}
 
 
-def _check_supported(opt) -> None:
-    if opt.Training.get("distributed"):
-        raise NotImplementedError("Training.distributed: multi-host and data-parallel training "
-                                  "are not ported yet (ROADMAP slice 10)")
-
-
 def train(opt, models: Stage1Models, train_loader, eval_loader, *, device=None,
           max_steps: int | None = None, eval_fvd: bool = True, draws: Draws | None = None,
           guard: PreemptionGuard | None = None, weights_root: str = "models") -> dict:
     """The training run over built modules and loaders. ``max_steps`` stops
     after that many steps in all and cuts the validation to 2 batches, as in
     the JAX package; ``guard`` is polled after every step; ``weights_root``
-    holds the I3D weights of the posterior FVD."""
-    _check_supported(opt)
+    holds the I3D weights of the posterior FVD. In a live process group the
+    loaders must give each rank its rows (``main`` builds them)."""
     device = resolve_device(device)
+    n_rank, primary = distributed.world(), distributed.is_primary()
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -218,8 +220,9 @@ def train(opt, models: Stage1Models, train_loader, eval_loader, *, device=None,
         tr["savename"])
     save_path = os.path.join(tr["save_path"] or ".", run_name)
     tr["save_path"] = save_path
-    os.makedirs(os.path.join(save_path, "videos"), exist_ok=True)
-    cfg.save(opt, os.path.join(save_path, "config_stage1.yaml"))
+    if primary:  # rank 0 alone touches the filesystem
+        os.makedirs(os.path.join(save_path, "videos"), exist_ok=True)
+        cfg.save(opt, os.path.join(save_path, "config_stage1.yaml"))
     wandb_sink = WandbSink()
     wandb_sink.init(opt.get("Logging"), opt, save_path, tr["savename"])
     log_train, log_test = Logging(TRAIN_KEYS), Logging(TEST_KEYS[:-1])
@@ -249,6 +252,9 @@ def train(opt, models: Stage1Models, train_loader, eval_loader, *, device=None,
                 for s in scheds:
                     s.load_state_dict({k: float(v) for k, v in sched_state.items()})
 
+    if n_rank > 1:
+        distributed.require_mesh_divisible(n_rank, bs=tr["bs"], bs_eval=tr["bs_eval"])
+    distributed.barrier("stage1-build")
     actnorm_done = start_epoch > 0
     # 999 is the reference's FVD-scale gate; the eval-loss fallback compares
     # against inf, so that the first epoch always writes best_PFVD_*
@@ -256,7 +262,13 @@ def train(opt, models: Stage1Models, train_loader, eval_loader, *, device=None,
     global_step = 0
     dump_warned = []
 
+    def rows(x):
+        """This rank's rows of a draw made for the global batch."""
+        return distributed.local_rows(x)
+
     def dump(sequences, epoch: int, mode: str) -> None:
+        if not primary:
+            return
         try:
             from ..utils.video import plot_vid
 
@@ -281,24 +293,28 @@ def train(opt, models: Stage1Models, train_loader, eval_loader, *, device=None,
             log_train.reset()
             sequences = None
             for i, batch in enumerate(train_loader.epoch_iter(epoch)):
-                n = batch["seq_raw"].shape[0]
-                seq = aug_train(torch.from_numpy(batch["seq_raw"]).to(device), draws=draws.augment(
-                    epoch, i, global_step, n, params_aug, random_crop))
-                if not actnorm_done:
-                    frames = seq.reshape((-1,) + seq.shape[2:])[:N_PATCH].permute(0, 3, 1, 2)
-                    init_actnorm(models.disc_s, frames)
+                n = batch["seq_raw"].shape[0] * n_rank  # the global batch's draws
+                seq = aug_train(torch.from_numpy(batch["seq_raw"]).to(device), draws=rows(
+                    draws.augment(epoch, i, global_step, n, params_aug, random_crop)))
+                if not actnorm_done:  # the global batch's first 20 frames, on every rank
+                    flat = seq.reshape((-1,) + seq.shape[2:])
+                    first = torch.arange(min(N_PATCH, flat.shape[0] * n_rank))
+                    frames = distributed.gather_rows(flat, first,
+                                                     distributed.rank() * flat.shape[0])
+                    with distributed.rank_local():
+                        init_actnorm(models.disc_s, frames.permute(0, 3, 1, 2))
                     opt_ds.reset()
                     actnorm_done = True
-                metrics, seq_gen = step(seq, epoch, draws.step(
-                    epoch, i, global_step, n, z_dim, seq.shape[1] - 1, sub_len))
-                metrics = {k: float(v) for k, v in metrics.items()}
+                sd = draws.step(epoch, i, global_step, n, z_dim, seq.shape[1] - 1, sub_len)
+                metrics, seq_gen = step(seq, epoch, StepDraws(rows(sd.eps), sd.start, sd.patches))
+                metrics = distributed.mean_scalars(metrics)
                 log_train.append(metrics)
                 wandb_sink.log(metrics)
                 sequences = clips(seq_gen, seq)
                 global_step += 1
                 if max_steps and global_step >= max_steps:
                     break
-                if guard is not None and guard.should_stop:
+                if guard is not None and distributed.any_rank(guard.should_stop):
                     break
             if sequences is not None:
                 dump(sequences, epoch, "train")
@@ -308,9 +324,9 @@ def train(opt, models: Stage1Models, train_loader, eval_loader, *, device=None,
             sequences = None
             for i, batch in enumerate(eval_loader.epoch_iter(epoch)):
                 seq = aug_eval(torch.from_numpy(batch["seq_raw"]).to(device))
-                metrics, seq_gen = eval_step(models, seq, draws.normal(
-                    "eval_posterior", epoch, i, global_step, (seq.shape[0], z_dim)))
-                log_test.append({k: float(v) for k, v in metrics.items()})
+                metrics, seq_gen = eval_step(models, seq, rows(draws.normal(
+                    "eval_posterior", epoch, i, global_step, (seq.shape[0] * n_rank, z_dim))))
+                log_test.append(distributed.mean_scalars(metrics))
                 sequences = clips(seq_gen, seq)
                 if max_steps and i >= 1:
                     break
@@ -323,7 +339,9 @@ def train(opt, models: Stage1Models, train_loader, eval_loader, *, device=None,
                 try:
                     PFVD = evaluate_FVD_posterior(eval_loader, aug_eval, models.decoder,
                                                   models.encoder, tr.get("FVD", "FVD"),
-                                                  weights_root, noise=draws.fvd_posterior)
+                                                  weights_root, noise=lambda shape: rows(
+                                                      draws.fvd_posterior(
+                                                          (shape[0] * n_rank,) + shape[1:])))
                     wandb_sink.log({"FVD": PFVD})
                 except FileNotFoundError as e:
                     warnings.warn(
@@ -335,18 +353,19 @@ def train(opt, models: Stage1Models, train_loader, eval_loader, *, device=None,
                         best_PFVD = float("inf")
 
             # ---------------- checkpoints ----------------
-            sched_sd = scheds[0].state_dict()
-            states = optimizer_states(models, optimizers)
-            payloads = {name: {"epoch": epoch + 1, "state_dict": variables(module),
-                               "optim_state_dict": states[name],
-                               "scheduler_state_dict": sched_sd}
-                        for name, module in networks(models).items()}
-            for name, payload in payloads.items():
-                writer.save_async(os.path.join(save_path, f"latest_checkpoint_{name}.msgpack"),
-                                  payload)
+            if primary:  # the ranks' weights are the same: rank 0's files describe the run
+                sched_sd = scheds[0].state_dict()
+                states = optimizer_states(models, optimizers)
+                payloads = {name: {"epoch": epoch + 1, "state_dict": variables(module),
+                                   "optim_state_dict": states[name],
+                                   "scheduler_state_dict": sched_sd}
+                            for name, module in networks(models).items()}
+                for name, payload in payloads.items():
+                    writer.save_async(
+                        os.path.join(save_path, f"latest_checkpoint_{name}.msgpack"), payload)
             metric = PFVD if PFVD == PFVD else log_test.log()[0]
             if metric < best_PFVD:
-                for name in ("GEN", "ENC"):
+                for name in ("GEN", "ENC") if primary else ():
                     writer.save_async(os.path.join(save_path, f"best_PFVD_{name}.msgpack"),
                                       payloads[name])
                 best_PFVD = metric
@@ -362,7 +381,7 @@ def train(opt, models: Stage1Models, train_loader, eval_loader, *, device=None,
             full_log_test.write([epoch, epoch_dt, lr, *log_test.log(), PFVD])
             if max_steps and global_step >= max_steps:
                 break
-            if guard is not None and guard.should_stop:
+            if guard is not None and distributed.any_rank(guard.should_stop):
                 break
     finally:
         writer.wait()
@@ -379,21 +398,25 @@ def train(opt, models: Stage1Models, train_loader, eval_loader, *, device=None,
 def main(opt, max_steps: int | None = None, eval_fvd: bool = True, device=None,
          draws: Draws | None = None) -> dict:
     """Train from the config, on ``device`` (``cuda`` unless the caller
-    passes another); ``draws`` replaces the run's draws."""
+    passes another; in a multi-process run, each rank's card); ``draws``
+    replaces the run's draws."""
     device = resolve_device(device)
+    tr = opt.Training
+    rank, n_rank = distributed.maybe_initialize(tr.get("distributed"), device)
+    if n_rank > 1:
+        device = distributed.rank_device(device)
     guard = PreemptionGuard()
     try:
         maybe_enable_debug_nans()
-        _check_supported(opt)
         models = build_models(opt)
-        tr = opt.Training
         dataset_cls = get_loader(opt.Data["dataset"])
         fs_spec = opt.Data.get("framestore", "off")
         loaders = {}
         for mode, bs, seed in (("train", tr["bs"], 42), ("eval", tr["bs_eval"], 43)):
             ds = dataset_cls(opt, mode=mode)
             loaders[mode] = Loader(ds, bs, workers=tr["workers"], seed=seed,
-                                   framestore=open_or_build(ds, fs_spec, mode))
+                                   framestore=open_or_build(ds, fs_spec, mode),
+                                   process_index=rank, process_count=n_rank)
         return train(opt, models, loaders["train"], loaders["eval"], device=device,
                      max_steps=max_steps, eval_fvd=eval_fvd, draws=draws, guard=guard)
     finally:

@@ -37,6 +37,16 @@ gradients, the refreshes and the optimizer state stay fp32. The eval step
 runs in fp32. Videos are (B, T, H, W, 3) at the boundary, as the augment
 gives them, and (B, 3, T, H, W) inside. The spans (``stage1/...``) name the
 phases for a profiler's trace.
+
+In a multi-process run (``parallel/distributed.py``) a rank holds its rows of
+the global batch and the step computes what the JAX package's global step
+does: the patch indices are into the global batch's frames, and each rank
+gathers the 20 frames (``distributed.gather_rows``), so the patch
+discriminator's loss is the same on every rank and its gradient reaches the
+frames' owners; the gradient penalty differentiates the global batch's mean
+logit (this rank's sum over the global count), so the per-clip gradients
+keep their scale; PSNR and SSIM take the global data range (and PSNR the
+global MSE); ``Adam`` averages the gradients.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from torch.profiler import record_function
 
 from ..losses.common import KL, fmap_loss, hinge_loss, psnr, ssim
 from ..models.layers import power_iteration_
+from ..parallel import distributed
 from .optim import Adam
 
 N_PATCH = 20
@@ -86,6 +97,18 @@ def flat_frames(video: torch.Tensor) -> torch.Tensor:
     """(B, C, T, H, W) -> (B * T, C, H, W), clip-major as the JAX package's."""
     b, c, t, h, w = video.shape
     return video.transpose(1, 2).reshape(b * t, c, h, w)
+
+
+def quality(gen: torch.Tensor, orig: torch.Tensor) -> dict:
+    """PSNR and SSIM of the generated frames against the real ones,
+    (B, C, T, H, W) each, over the global batch."""
+    fg, fo = flat_frames(gen), flat_frames(orig)
+    if distributed.world() == 1:
+        return {"PSNR": psnr(fg, fo), "SSIM": ssim(fg, fo)}
+    data_range = distributed.all_reduce_max(fo.max()) + distributed.all_reduce_max(-fo.min())
+    mse = distributed.all_reduce_sum(torch.mean(torch.square(fg - fo))) / distributed.world()
+    return {"PSNR": 10.0 * torch.log10(data_range ** 2 / mse),
+            "SSIM": ssim(fg, fo, data_range=data_range)}
 
 
 def _cast(x, dtype):
@@ -185,8 +208,12 @@ class Stage1Step:
 
     @staticmethod
     def patch_frames(gen: torch.Tensor, orig: torch.Tensor, idx: torch.Tensor):
-        idx = idx.to(gen.device)
-        return flat_frames(gen)[idx], flat_frames(orig)[idx]
+        """The frames ``idx`` of the global batch's flattened frames, whole on
+        every rank (``distributed.gather_rows``)."""
+        fg, fo = flat_frames(gen), flat_frames(orig)
+        offset = distributed.rank() * fg.shape[0]  # every rank holds as many frames
+        return (distributed.gather_rows(fg, idx, offset),
+                distributed.gather_rows(fo, idx, offset))
 
     def disc_t_loss(self, fake: torch.Tensor, real: torch.Tensor, create_graph: bool):
         """The temporal discriminator's hinge loss plus w_GP times the
@@ -196,7 +223,9 @@ class Stage1Step:
         pred_real, _ = apply(self.models.disc_t, self.dtype, real)
         l_d = hinge_loss(pred_fake, pred_real, "disc")
         if self.w_GP:
-            (grad_x,) = torch.autograd.grad(pred_real.mean(), real, create_graph=create_graph)
+            # d mean(logits) / d real over the global batch: the rank's sum over the global count
+            mean_logit = pred_real.sum() / (pred_real.numel() * distributed.world())
+            (grad_x,) = torch.autograd.grad(mean_logit, real, create_graph=create_graph)
             gp = grad_x.square().reshape(real.shape[0], -1).sum(1).mean()
         else:
             gp = torch.zeros((), device=real.device)
@@ -238,8 +267,7 @@ class Stage1Step:
             fwd = self.forward_vae(seq, draws.eps)
         gen_d, orig = fwd["gen"].detach(), fwd["orig"]
         with torch.no_grad():
-            metrics = {"PSNR": psnr(flat_frames(gen_d), flat_frames(orig)),
-                       "SSIM": ssim(flat_frames(gen_d), flat_frames(orig))}
+            metrics = quality(gen_d, orig)
         fake_t, real_t = self.subsample(gen_d, orig, draws.start)
         fake_s, real_s = self.patch_frames(gen_d, orig, draws.patches)
 
@@ -283,5 +311,5 @@ def eval_step(models: Stage1Models, seq: torch.Tensor, eps: torch.Tensor):
     gen = models.decoder(video[:, :, 0], motion)
     fg, fo = flat_frames(gen), flat_frames(orig)
     metrics = {"Loss_L1": torch.mean(torch.abs(gen - orig)), "LPIPS": models.lpips(fo, fg).mean(),
-               "L_KL": KL(mu, logvar), "PSNR": psnr(fg, fo), "SSIM": ssim(fg, fo)}
+               "L_KL": KL(mu, logvar), **quality(gen, orig)}
     return metrics, gen.permute(0, 2, 1, 3, 4)

@@ -39,8 +39,17 @@ and batch, so a resumed run draws what an uninterrupted one would, and the
 card and the CPU see the same numbers. Tests subclass it to inject the JAX
 package's draws. ``Training.steps_per_dispatch`` (the JAX package's scan
 chunks, a TPU dispatch mechanism whose steps equal single steps) is ignored:
-the port runs single steps. ``Training.distributed`` raises
-``NotImplementedError``.
+the port runs single steps.
+
+``Training.distributed`` (``parallel/distributed.py``) runs one process per
+card: ``main`` joins the process group, each rank's loaders decode its rows
+of every global batch and drop an indivisible tail, and the batch sizes must
+divide the world. Every draw is made for the global batch and sliced to the
+rank's rows, so a multi-process run takes the single-process run's steps:
+the ActNorm init and ``Adam`` reduce over the ranks, every logged loss is the
+global mean (the validation loss steers the best checkpoint), the prior FVD
+pools the ranks' I3D activations, the posterior cache is built in shards and
+summed, a SIGTERM on any rank stops every rank, and rank 0 alone writes.
 
 ``train`` runs a built set of modules over given loaders (``chip_smoke.py``
 calls it with in-memory models; the cache reads the train loader's
@@ -74,13 +83,15 @@ from ..models.facade import _variables, resolve_device
 from ..models.stage1.decoder import Generator
 from ..models.stage1.resnet3d import Encoder
 from ..models.stage2.inn import SupervisedTransformer
+from ..parallel import distributed
 from ..utils import checkpoint as ckpt_io
 from ..utils import convert
 from ..utils.logging import CSVlogger, Logging, WandbSink
 from ..utils.preemption import PreemptionGuard, maybe_enable_debug_nans
 from .fvd_eval import evaluate_FVD_prior
 from .optim import LRController, adam_torch, get_lr, load_optax_state, optax_state, set_lr
-from .posterior_cache import WindowIndex, build_cache, make_clip_reader, resample_posterior
+from .posterior_cache import (WindowIndex, assemble_cache_multiprocess, build_cache,
+                              make_clip_reader, resample_posterior)
 
 LOGGING_KEYS = ["Loss", "reference_nll_loss", "nlogdet_loss", "nll_loss", "PFVD"]
 
@@ -250,9 +261,6 @@ def network_variables(network: SupervisedTransformer, embedder_tree: dict | None
 
 def _check_supported(opt) -> None:
     tr = opt.Training
-    if tr.get("distributed"):
-        raise NotImplementedError("Training.distributed: multi-host and data-parallel training "
-                                  "are not ported yet (ROADMAP slice 10)")
     if tr.get("cache_posteriors") and augment_params(opt, "train")[2]:
         raise ValueError(
             "Training.cache_posteriors requires Data.aug: false — cached (mu, logvar) are only "
@@ -267,9 +275,11 @@ def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
     """The training run over built modules and loaders. ``max_steps`` stops
     after that many steps in all (and cuts the validation to 3 batches), as
     in the JAX package; ``guard`` is polled after every step;
-    ``weights_root`` holds the I3D weights of the prior FVD."""
+    ``weights_root`` holds the I3D weights of the prior FVD. In a live process
+    group the loaders must give each rank its rows (``main`` builds them)."""
     _check_supported(opt)
     device = resolve_device(device)
+    n_rank, primary = distributed.world(), distributed.is_primary()
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -302,8 +312,9 @@ def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
         tr["savename"])
     save_path = os.path.join(tr["save_path"] or ".", run_name)
     tr["save_path"] = save_path
-    os.makedirs(os.path.join(save_path, "videos"), exist_ok=True)
-    cfg.save(opt, os.path.join(save_path, "config_stage2.yaml"))
+    if primary:  # rank 0 alone touches the filesystem
+        os.makedirs(os.path.join(save_path, "videos"), exist_ok=True)
+        cfg.save(opt, os.path.join(save_path, "config_stage2.yaml"))
     wandb_sink = WandbSink()
     wandb_sink.init(opt.get("Logging"), opt, save_path, tr["savename"])
     loss_track_train = Logging(LOGGING_KEYS[:-1])
@@ -334,16 +345,26 @@ def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
             set_lr(optimizer, lr_ctrl.lr)
             actnorm_done = True
     network.flow.pack_kernel_weights(torch.float32)
+    if n_rank > 1:
+        distributed.require_mesh_divisible(n_rank, bs=tr["bs"], bs_eval=tr["bs_eval"])
+    # the builds above differ in time between ranks: enter the collectives together
+    distributed.barrier("stage2-build")
 
     moments = windex = None
     if tr.get("cache_posteriors"):
         train_ds, seq_length = train_loader.dataset, opt.Data["sequence_length"]
         windex = WindowIndex(train_ds, seq_length)
+        # each rank encodes its share of the unique videos, when each has one
+        shard = ((distributed.rank(), n_rank) if n_rank <= len(windex.rep_entries)
+                 else (0, 1))
         t_cache = time.time()
         moments = build_cache(
             step_encoder, train_ds, seq_length, aug_train,
             make_clip_reader(train_ds, train_loader.framestore, tr["workers"]),
-            videos_per_dispatch=int(tr.get("cache_videos_per_dispatch", 32)))
+            videos_per_dispatch=int(tr.get("cache_videos_per_dispatch", 32)), shard=shard)
+        if shard[1] > 1:
+            distributed.barrier("stage2-cache-build")
+            moments = assemble_cache_multiprocess(moments)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         n_w, _, z_c = moments.shape
@@ -357,6 +378,10 @@ def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
         if not dump_warned:
             warnings.warn(f"per-epoch sample-video dump failed (reported once a run): {e!r}")
             dump_warned.append(e)
+
+    def rows(x):
+        """This rank's rows of a draw made for the global batch."""
+        return distributed.local_rows(x)
 
     def batch_on_device(batch, augment, aug_draws=None):
         seq = augment(torch.from_numpy(batch["seq_raw"]).to(device), draws=aug_draws)
@@ -373,35 +398,35 @@ def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
             # ---------------- train ----------------
             loss_track_train.reset()
             for i, batch in enumerate(train_loader.epoch_iter(epoch)):
-                n = batch["seq_raw"].shape[0]
+                n = batch["seq_raw"].shape[0] * n_rank  # the global batch's draws
                 if moments is None:
-                    seq, cond = batch_on_device(batch, aug_train, draws.augment(
-                        epoch, i, global_step, n, params_aug, random_crop))
+                    seq, cond = batch_on_device(batch, aug_train, rows(draws.augment(
+                        epoch, i, global_step, n, params_aug, random_crop)))
                 else:  # the augment is deterministic: no draws
                     seq, cond = batch_on_device(batch, aug_train)
                     wids = _window_ids(windex, train_loader, batch, device)
                 if not actnorm_done:
-                    eps0 = draws.normal("actnorm", epoch, i, global_step, (n, z_dim))
+                    eps0 = rows(draws.normal("actnorm", epoch, i, global_step, (n, z_dim)))
                     post = (posterior(encoder, seq, eps0) if moments is None
                             else cached_posterior(moments, wids, eps0))
                     network.init_actnorm(post, cond)
                     optimizer.reset()
                     set_lr(optimizer, lr_ctrl.lr)
                     actnorm_done = True
-                eps = draws.normal("posterior", epoch, i, global_step, (n, z_dim))
-                ref = draws.normal("reference", epoch, i, global_step, (n, z_dim))
+                eps = rows(draws.normal("posterior", epoch, i, global_step, (n, z_dim)))
+                ref = rows(draws.normal("reference", epoch, i, global_step, (n, z_dim)))
                 if moments is None:
                     aux = train_step(network, optimizer, step_encoder, seq, cond, eps, ref)
                 else:
                     aux = cached_train_step(network, optimizer, moments, wids, cond, eps, ref,
                                             cache_dtype)
-                aux = {k: float(v) for k, v in aux.items()}
+                aux = distributed.mean_scalars(aux)  # the global batch's losses
                 loss_track_train.append(aux)
                 wandb_sink.log({f"train_{k}": v for k, v in aux.items()})
                 global_step += 1
                 if max_steps and global_step >= max_steps:
                     break
-                if guard is not None and guard.should_stop:
+                if guard is not None and distributed.any_rank(guard.should_stop):
                     break
             network.flow.pack_kernel_weights(torch.float32)  # the kernels read the new flow
 
@@ -409,16 +434,16 @@ def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
             loss_track_test.reset()
             eval_auxs = []
             for i, batch in enumerate(eval_loader.epoch_iter(epoch)):
-                n = batch["seq_raw"].shape[0]
+                n = batch["seq_raw"].shape[0] * n_rank
                 seq, cond = batch_on_device(batch, aug_eval)
                 eval_auxs.append(eval_step(
                     network, step_encoder, seq, cond,
-                    draws.normal("eval_posterior", epoch, i, global_step, (n, z_dim)),
-                    draws.normal("eval_reference", epoch, i, global_step, (n, z_dim))))
+                    rows(draws.normal("eval_posterior", epoch, i, global_step, (n, z_dim))),
+                    rows(draws.normal("eval_reference", epoch, i, global_step, (n, z_dim)))))
                 if max_steps and i >= 2:
                     break
             for aux in eval_auxs:
-                aux = {k: float(v) for k, v in aux.items()}
+                aux = distributed.mean_scalars(aux)
                 loss_track_test.append(aux)
                 wandb_sink.log({f"eval_{k}": v for k, v in aux.items()})
 
@@ -430,7 +455,8 @@ def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
                         eval_loader, aug_eval, network, decoder, z_dim, opt, epoch,
                         models.config1.get("Training", {}).get("FVD", "FVD"), control,
                         weights_root=weights_root,
-                        residual=lambda i, shape: draws.prior(epoch, i, shape),
+                        residual=lambda i, shape: rows(draws.prior(
+                            epoch, i, (shape[0] * n_rank,) + tuple(shape[1:]))),
                         on_dump_error=warn_dump_once, wandb_sink=wandb_sink)
                     wandb_sink.log({"FVD": PFVD})
                 except FileNotFoundError as e:
@@ -442,15 +468,18 @@ def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
                     if best_PFVD == 999.0:
                         best_PFVD = float("inf")
 
-            net_vars_out = network_variables(network, models.embedder_tree)
-            opt_host = optax_state(optimizer, names, _flow_tree)
+            if primary:  # the ranks' weights are the same: rank 0's files describe the run
+                net_vars_out = network_variables(network, models.embedder_tree)
+                opt_host = optax_state(optimizer, names, _flow_tree)
             metric = PFVD if PFVD == PFVD else loss_track_test.log()[0]
             if metric < best_PFVD:
-                writer.save_async(os.path.join(save_path, "cINN.msgpack"),
-                                  ckpt_io.get_save_dict(net_vars_out, opt_host, epoch))
+                if primary:
+                    writer.save_async(os.path.join(save_path, "cINN.msgpack"),
+                                      ckpt_io.get_save_dict(net_vars_out, opt_host, epoch))
                 best_PFVD = metric
-            writer.save_async(os.path.join(save_path, "cINN_latest.msgpack"),
-                              ckpt_io.get_save_dict(net_vars_out, opt_host, epoch))
+            if primary:
+                writer.save_async(os.path.join(save_path, "cINN_latest.msgpack"),
+                                  ckpt_io.get_save_dict(net_vars_out, opt_host, epoch))
 
             epoch_dt = time.time() - epoch_time
             full_log_train.write([epoch, epoch_dt, lr, *loss_track_train.log(), PFVD])
@@ -458,7 +487,7 @@ def train(opt, models: Stage2Models, train_loader, eval_loader, *, device=None,
             set_lr(optimizer, lr_ctrl.step())
             if max_steps and global_step >= max_steps:
                 break
-            if guard is not None and guard.should_stop:
+            if guard is not None and distributed.any_rank(guard.should_stop):
                 break
     finally:
         writer.wait()
@@ -483,14 +512,18 @@ def _window_ids(windex: WindowIndex, loader, batch: dict, device) -> torch.Tenso
 def main(opt, max_steps: int | None = None, eval_fvd: bool = True, device=None,
          draws: Draws | None = None) -> dict:
     """Train from the directories ``opt`` chains to, on ``device`` (``cuda``
-    unless the caller passes another); ``draws`` replaces the run's draws."""
+    unless the caller passes another; in a multi-process run, each rank's
+    card); ``draws`` replaces the run's draws."""
     device = resolve_device(device)
     _check_supported(opt)  # before any model is built
+    tr = opt.Training
+    rank, n_rank = distributed.maybe_initialize(tr.get("distributed"), device)
+    if n_rank > 1:
+        device = distributed.rank_device(device)
     guard = PreemptionGuard()
     try:
         maybe_enable_debug_nans()
         models = build_models(opt)
-        tr = opt.Training
         cached = bool(tr.get("cache_posteriors", False))
         dataset_cls = get_loader(opt.Data["dataset"], control=bool(tr.get("control", False)))
         fs_spec = opt.Data.get("framestore", "off")
@@ -500,6 +533,8 @@ def main(opt, max_steps: int | None = None, eval_fvd: bool = True, device=None,
             lean = cached and mode == "train"  # one conditioning frame and the window's id
             loaders[mode] = Loader(ds, bs, workers=tr["workers"], drop_last=False, seed=seed,
                                    framestore=open_or_build(ds, fs_spec, mode),
+                                   process_index=rank, process_count=n_rank,
+                                   tail_multiple=n_rank if n_rank > 1 else None,
                                    frames_per_item=1 if lean else None, with_meta=lean)
         return train(opt, models, loaders["train"], loaders["eval"], device=device,
                      max_steps=max_steps, eval_fvd=eval_fvd, draws=draws, guard=guard)

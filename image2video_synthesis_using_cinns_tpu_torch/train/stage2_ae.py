@@ -50,10 +50,18 @@ epoch and batch; tests inject the JAX trainer's ``fold_in(PRNGKey(42),
 global_step)``); the eval transform draws nothing. ``AE.pretrained: true``
 starts the decoder from the ImageNet BigGAN checkpoint (``build_models``;
 not in the repository, docs/WEIGHTS.md), and a missing file raises.
-``Training.distributed`` raises; ``steps_per_dispatch``, a TPU dispatch
-mechanism whose steps equal single steps, is ignored. fp32, with TF32 off on
-a CUDA device. The spans (``stage2_ae/...``) name the phases for a
-profiler's trace.
+``steps_per_dispatch``, a TPU dispatch mechanism whose steps equal single
+steps, is ignored. fp32, with TF32 off on a CUDA device. The spans
+(``stage2_ae/...``) name the phases for a profiler's trace.
+
+``Training.distributed`` runs one process per card, as in ``stage2.py``:
+each rank's loaders decode its rows and the augment's draws are made for the
+global batch and sliced. BatchNorm and the discriminator's ActNorm init take
+the global batch's statistics (``models/layers.py``); d_weight is taken from
+the colorize gradients averaged over the ranks, the discriminator steps only
+where the global d_loss > 0, every logged metric is the global mean (so the
+plateau schedulers and the best ``Encoder_stage2`` agree), and rank 0 alone
+writes.
 """
 
 from __future__ import annotations
@@ -81,6 +89,7 @@ from ..models.facade import resolve_device
 from ..models.layers import init_actnorm, power_iteration_, updating_batch_stats
 from ..models.stage1.patch_disc import NLayerDiscriminator
 from ..models.stage2.biggan import BigAE
+from ..parallel import distributed
 from ..utils import checkpoint as ckpt_io
 from ..utils import convert
 from ..utils.logging import CSVlogger, Logging, WandbSink
@@ -130,7 +139,6 @@ def build_models(opt, seed: int = 0, weights_root: str = "models",
     With ``AE.pretrained: true`` every decoder weight but ``G_linear`` comes
     from ``{weights_root}/biggan/biggan_{in_size}.pth`` (or the state dict
     ``biggan_sd``), as ``convert.pretrained_init_biggan`` maps it."""
-    _check_supported(opt)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         network = BigAE(dict(opt.AE))
@@ -183,6 +191,7 @@ class AEStep:
                 w = m.network.colorize_weight
                 (g1,) = torch.autograd.grad(loss_vae, w, retain_graph=True)
                 (g2,) = torch.autograd.grad(g_loss, w, retain_graph=True)
+                distributed.all_reduce_mean_([g1, g2])  # the global batch's gradients
                 d_weight = torch.clamp(torch.linalg.vector_norm(g1)
                                        / (torch.linalg.vector_norm(g2) + 1e-4), 0.0, 1e4).detach()
             loss_total = loss_vae + d_weight * gate * g_loss
@@ -203,7 +212,8 @@ class AEStep:
         with record_function("stage2_ae/disc"), torch.set_grad_enabled(bool(train and gate)):
             logits_real, logits_fake = m.disc(img), m.disc(recon)
             d_loss = gate * hinge_loss(logits_fake, logits_real, "disc")
-            if train and gate and bool(d_loss > 0):
+            # the global batch's d_loss decides, the same on every rank
+            if train and gate and distributed.mean_scalars({"d": d_loss})["d"] > 0:
                 backward_into(d_loss, list(m.disc.parameters()))
                 with record_function("stage2_ae/disc_optimizer"):
                     self.opt_disc.step()
@@ -231,18 +241,14 @@ def recon_grid(img: torch.Tensor, recon: torch.Tensor) -> np.ndarray:
     return (grid * 255).astype(np.uint8)
 
 
-def _check_supported(opt) -> None:
-    if opt.Training.get("distributed"):
-        raise NotImplementedError("Training.distributed: multi-host and data-parallel training "
-                                  "are not ported yet (ROADMAP slice 10)")
-
-
 def train(opt, models: AEModels, train_loader, eval_loader, *, device=None,
           max_steps: int | None = None, draws: Draws | None = None) -> dict:
     """The training run over built modules and loaders; ``max_steps`` stops
-    after that many steps in all and cuts the validation to 2 batches."""
-    _check_supported(opt)
+    after that many steps in all and cuts the validation to 2 batches. In a
+    live process group the loaders must give each rank its rows (``main``
+    builds them)."""
     device = resolve_device(device)
+    n_rank, primary = distributed.world(), distributed.is_primary()
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -268,8 +274,9 @@ def train(opt, models: AEModels, train_loader, eval_loader, *, device=None,
         tr["savename"])
     save_path = os.path.join(tr["save_path"] or ".", run_name)
     tr["save_path"] = save_path
-    os.makedirs(os.path.join(save_path, "images"), exist_ok=True)
-    cfg.save(opt, os.path.join(save_path, "config_stage2_AE.yaml"))
+    if primary:  # rank 0 alone touches the filesystem
+        os.makedirs(os.path.join(save_path, "images"), exist_ok=True)
+        cfg.save(opt, os.path.join(save_path, "config_stage2_AE.yaml"))
     wandb_sink = WandbSink()
     wandb_sink.init(opt.get("Logging"), opt, save_path, tr["savename"])
     logger_train, logger_eval = Logging(LOG_KEYS), Logging(LOG_KEYS)
@@ -284,7 +291,13 @@ def train(opt, models: AEModels, train_loader, eval_loader, *, device=None,
     global_step = 0
     dump_warned = []
 
+    if n_rank > 1:
+        distributed.require_mesh_divisible(n_rank, bs=tr["bs"])
+    distributed.barrier("stage2-ae-build")
+
     def dump(pair, epoch: int) -> None:
+        if not primary:
+            return
         grid = recon_grid(*pair)
         wandb_sink.log_image("images_train", grid, caption="Reconstructions")
         try:
@@ -305,16 +318,16 @@ def train(opt, models: AEModels, train_loader, eval_loader, *, device=None,
             loss_recon = float("nan")
             last = None
             for i, batch in enumerate(train_loader.epoch_iter(epoch)):
-                n = batch["seq_raw"].shape[0]
-                img = prep(aug_train, batch, draws.augment(epoch, i, global_step, n, params_aug,
-                                                           random_crop))
+                n = batch["seq_raw"].shape[0] * n_rank  # the global batch's draws
+                img = prep(aug_train, batch, distributed.local_rows(
+                    draws.augment(epoch, i, global_step, n, params_aug, random_crop)))
                 if not actnorm_done:
                     init_actnorm(models.disc, img)
                     opt_disc.reset()
                     set_lr(opt_disc, scheds[1].lr)
                     actnorm_done = True
                 metrics, recon = step(img, epoch)
-                metrics = {k: float(v) for k, v in metrics.items()}
+                metrics = distributed.mean_scalars(metrics)
                 loss_recon = metrics["Loss_recon"]
                 logger_train.append(metrics)
                 wandb_sink.log({f"train_{k}": v for k, v in metrics.items()})
@@ -332,14 +345,15 @@ def train(opt, models: AEModels, train_loader, eval_loader, *, device=None,
             logger_eval.reset()
             for i, batch in enumerate(eval_loader.epoch_iter(epoch)):
                 metrics, _ = step(prep(aug_eval, batch), epoch, train=False)
-                logger_eval.append({k: float(v) for k, v in metrics.items()})
+                logger_eval.append(distributed.mean_scalars(metrics))
                 if max_steps and i >= 1:
                     break
             val_recon = logger_eval.log()[LOG_KEYS.index("Loss_recon")]
             if val_recon < best_val:
                 best_val = val_recon
-                writer.save_async(os.path.join(save_path, "Encoder_stage2.msgpack"),
-                                  {"state_dict": encoder_variables(models)})
+                if primary:
+                    writer.save_async(os.path.join(save_path, "Encoder_stage2.msgpack"),
+                                      {"state_dict": encoder_variables(models)})
 
             dt = time.time() - t0
             csv_train.write([epoch, dt, lr, *logger_train.log()])
@@ -354,16 +368,22 @@ def train(opt, models: AEModels, train_loader, eval_loader, *, device=None,
 
 def main(opt, max_steps: int | None = None, device=None, draws: Draws | None = None) -> dict:
     """Train from the config, on ``device`` (``cuda`` unless the caller
-    passes another); ``draws`` replaces the run's draws."""
+    passes another; in a multi-process run, each rank's card); ``draws``
+    replaces the run's draws."""
     device = resolve_device(device)
-    models = build_models(opt)
     tr = opt.Training
+    rank, n_rank = distributed.maybe_initialize(tr.get("distributed"), device)
+    if n_rank > 1:
+        device = distributed.rank_device(device)
+    models = build_models(opt)
     dataset_cls = get_loader(opt.Data["dataset"])
     fs_spec = opt.Data.get("framestore", "off")
     loaders = {}
     for mode, seed, drop_last in (("train", 42, True), ("eval", 43, False)):
         ds = dataset_cls(opt, mode=mode)
         loaders[mode] = Loader(ds, tr["bs"], workers=tr["workers"], drop_last=drop_last,
-                               seed=seed, framestore=open_or_build(ds, fs_spec, mode))
+                               seed=seed, framestore=open_or_build(ds, fs_spec, mode),
+                               process_index=rank, process_count=n_rank,
+                               tail_multiple=n_rank if n_rank > 1 else None)
     return train(opt, models, loaders["train"], loaders["eval"], device=device,
                  max_steps=max_steps, draws=draws)

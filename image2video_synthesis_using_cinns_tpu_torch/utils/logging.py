@@ -4,7 +4,9 @@
 The same method names and CSV layout as the JAX package's, so the trainers'
 logs read the same. wandb is optional: ``WandbSink`` logs there only when
 ``Logging.mode`` is not ``disabled`` and ``wandb`` imports; otherwise every
-call is a no-op, as in the JAX package.
+call is a no-op, as in the JAX package. In a multi-process run only rank 0
+touches the filesystem and wandb (``parallel/distributed.py``): on the other
+ranks ``CSVlogger`` writes nothing and ``WandbSink`` stays off.
 """
 
 from __future__ import annotations
@@ -13,16 +15,24 @@ import csv
 
 import numpy as np
 
+from ..parallel import distributed
+
 
 class CSVlogger:
-    def __init__(self, logname: str, header_names: list[str]):
+    def __init__(self, logname: str, header_names: list[str], enabled: bool | None = None):
+        """``enabled``: whether to write at all; by default on rank 0 only."""
         self.header_names = header_names
         self.logname = logname
+        self.enabled = distributed.is_primary() if enabled is None else enabled
+        if not self.enabled:
+            return
         with open(logname, "a") as csv_file:
             writer = csv.writer(csv_file, delimiter=",")
             writer.writerow(header_names)
 
     def write(self, inputs: list) -> None:
+        if not self.enabled:
+            return
         with open(self.logname, "a") as csv_file:
             writer = csv.writer(csv_file, delimiter=",")
             writer.writerow(inputs)
@@ -53,7 +63,7 @@ class WandbSink:
 
     def init(self, log_cfg, config, save_path: str, name: str) -> None:
         mode = (log_cfg or {}).get("mode", "disabled")
-        if mode in (None, "disabled", "off"):
+        if mode in (None, "disabled", "off") or not distributed.is_primary():
             return
         try:
             import wandb

@@ -22,6 +22,7 @@ from image2video_synthesis_using_cinns_tpu_torch.cli import generate_samples, ge
 from image2video_synthesis_using_cinns_tpu_torch.utils import seed as tseed
 from image2video_synthesis_using_cinns_tpu_torch.utils import video as tvideo
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -62,10 +63,12 @@ def test_generate_samples_cli(tmp_path, monkeypatch, ckpt):
     assert np.asarray(Image.open(gif).convert("RGB")).shape == (32, 3 * 32, 3)
 
 
-@pytest.mark.parametrize("flag", [["-data_parallel"], ["-spatial_shard", "2"]])
+@pytest.mark.parametrize("flag", [["-spatial_shard", "2", "-data_parallel"], ["-spatial_shard", "2"]])
 @pytest.mark.parametrize("cli", [generate_samples, generate_transfer])
 def test_multi_device_flags_raise(cli, flag):
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    """The width-sharded decoder is not ported: alone or beside -data_parallel
+    (which serves: tests/test_torch_port_parallel.py)."""
+    with pytest.raises(NotImplementedError, match="slice 11"):
         cli.main(["-dataset", "landscape", "-ckpt_path", "unused/", "-device", "cpu"] + flag)
 
 

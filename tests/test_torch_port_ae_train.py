@@ -26,8 +26,9 @@ port's ``cli/visualize_endpoint.py``.
   by the port's ``Model`` and stage-2 ``build_models``, which embed as the
   JAX encoder does.
 * The CLI trains on the CPU and writes the JAX layout (config, CSVs, recon
-  grid, encoder); ``AE.pretrained`` without its file and ``Training.distributed`` raise; the
-  entry points default to ``cuda``.
+  grid, encoder); ``AE.pretrained`` without its file and
+  ``Training.distributed: true`` outside torchrun raise; the entry points
+  default to ``cuda``.
 * ``visualize_endpoint -device cpu`` against the root script on the JAX
   package's tiny control checkpoint and a synthetic BAIR endpoint test
   split, the residuals of both pinned to one numpy stream: its GIFs and
@@ -73,6 +74,7 @@ from test_torch_port_ae_layers import cf
 from test_torch_port_ae_step import _flat, ae_opt, jax_variables, port_models
 from test_torch_port_stage1_step import two_threads  # noqa: F401
 from test_torch_port_train_augment import jax_draws
+from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 CSV_TOL, EMBED_TOL = 1e-4, 1e-5
 MAIN_LR = 2e-8  # see the module docstring
@@ -276,8 +278,8 @@ def test_unported_options_raise_and_entry_points_default_to_cuda(world, monkeypa
                                                 "models/biggan/biggan_64.pth"):
         tae.main(opt, device="cpu")
     opt = _opt(tcfg, world, "raise")
-    opt.Training["distributed"] = True
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    opt.Training["distributed"] = True  # torchrun's environment, which is not set here
+    with pytest.raises(RuntimeError, match="torchrun"):
         tae.main(opt, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -330,7 +332,7 @@ def test_visualize_endpoint_cli(tmp_path, monkeypatch):
 
     videos = {}
     monkeypatch.setattr(visualize_endpoint, "write",
-                        lambda v, real=visualize_endpoint.write: (videos.setdefault("v", v),
+                        lambda v, real=visualize_endpoint.write: (videos.__setitem__("v", v),
                                                                   real(v)))
     pin_residuals(monkeypatch, Model)
     visualize_endpoint.main(args + ["-device", "cpu"])
@@ -343,7 +345,17 @@ def test_visualize_endpoint_cli(tmp_path, monkeypatch):
     assert v.shape == want.shape == (3, 2, 8, 3, 32, 32)
     assert np.isfinite(v).all() and np.abs(v).max() <= 1
     np.testing.assert_allclose(v, want, rtol=ENDPOINT_TOL, atol=ENDPOINT_TOL)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        visualize_endpoint.main(args + ["-device", "cpu", "-data_parallel"])
+    # three CPU replicas (each batch of 2 padded to 3) serve the same videos,
+    # to the JAX package's data-parallel bound (tests/test_parallel.py)
+    from image2video_synthesis_using_cinns_tpu_torch.models import facade
+    from image2video_synthesis_using_cinns_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(facade, "make_mesh", lambda: make_mesh(devices=["cpu"] * 3))
+    pin_residuals(monkeypatch, Model)
+    visualize_endpoint.main(args + ["-device", "cpu", "-data_parallel"])
+    np.testing.assert_allclose(videos["v"], v, rtol=1e-3, atol=1e-4)
+    assert videos["v"] is not v
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        visualize_endpoint.main(args + ["-device", "cpu", "-spatial_shard", "2"])
     with pytest.raises(ValueError, match="BAIR only"):
         visualize_endpoint.main(["-dataset", "landscape", "-device", "cpu"])

@@ -57,6 +57,7 @@ from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint as tckp
 from image2video_synthesis_using_cinns_tpu_torch.utils import convert as TC
 from image2video_synthesis_using_cinns_tpu_torch.utils import profiling
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 P = jtesting.PRESETS["tiny"]
 S1 = jtesting.stage1_config(P)

@@ -38,6 +38,7 @@ from image2video_synthesis_using_cinns_tpu_torch.models.stage2.biggan import Big
 from image2video_synthesis_using_cinns_tpu_torch.train import stage1 as ts1
 from image2video_synthesis_using_cinns_tpu_torch.utils import convert as TC
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SCRIPTS = ROOT / "scripts"

@@ -32,6 +32,7 @@ from image2video_synthesis_using_cinns_tpu_torch.data import registry as treg
 from image2video_synthesis_using_cinns_tpu_torch.data.augment import build_augment as taugment
 from image2video_synthesis_using_cinns_tpu_torch.data.loader import Loader as TLoader
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -41,6 +41,7 @@ from image2video_synthesis_using_cinns_tpu_torch.metrics import streaming_eval a
 from image2video_synthesis_using_cinns_tpu_torch.models.backbones.vgg16 import VGG16Features
 from image2video_synthesis_using_cinns_tpu_torch.utils import convert
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 KIND_SEEDS = {"kinetics": 3, "dt16": 4, "dt32": 5}
 
@@ -253,10 +254,12 @@ def test_eval_diversity_cli_matches_jax(tiny_dirs, stand_ins, same_residuals, mo
         assert np.isfinite(x) and abs(x - y) <= 1e-3 * abs(y), (a, b)
 
 
-@pytest.mark.parametrize("flag", [["-data_parallel"], ["-spatial_shard", "2"]])
+@pytest.mark.parametrize("flag", [["-spatial_shard", "2", "-data_parallel"], ["-spatial_shard", "2"]])
 @pytest.mark.parametrize("cli", [eval_synthesis_quality, eval_diversity])
 def test_multi_device_flags_raise(cli, flag):
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    """The width-sharded decoder is not ported: alone or beside -data_parallel
+    (which serves: tests/test_torch_port_parallel.py)."""
+    with pytest.raises(NotImplementedError, match="slice 11"):
         cli.main(["-dataset", "bair", "-data_path", "unused/", "-ckpt_path", "unused/",
                   "-device", "cpu"] + flag)
 

@@ -42,6 +42,7 @@ from image2video_synthesis_using_cinns_tpu_torch.models.backbones.vgg16 import V
 from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint as tckpt
 from image2video_synthesis_using_cinns_tpu_torch.utils import convert
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 DEEP_TOL = 1e-4
 VGG_TOL = 1e-5

@@ -18,6 +18,7 @@ from image2video_synthesis_using_cinns_tpu.utils import checkpoint as jax_ckpt
 from image2video_synthesis_using_cinns_tpu_torch import config as tcfg
 from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint as tckpt
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "image2video_synthesis_using_cinns_tpu_torch"

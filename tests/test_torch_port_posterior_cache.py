@@ -46,6 +46,7 @@ from image2video_synthesis_using_cinns_tpu_torch.models.stage1.resnet3d import E
 from image2video_synthesis_using_cinns_tpu_torch.utils.convert import to_state_dict
 from test_torch_port_encoder import _numpy_init
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 P = PRESETS["tiny"]
 T = 9

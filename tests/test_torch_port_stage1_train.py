@@ -26,8 +26,8 @@ train and eval splits of 2 clips (one step and one eval batch an epoch at bs
   decode alike; the run directory serves as the stage-1 model of the port's
   ``Model``.
 * The CLI trains on the CPU; without I3D weights it warns once and the best
-  checkpoint follows the eval L1; ``Training.distributed`` raises; the entry
-  points default to ``cuda``.
+  checkpoint follows the eval L1; ``Training.distributed: true`` outside
+  torchrun raises; the entry points default to ``cuda``.
 
 The runs take a tenth of the config's lr. The CSV rows of the gated epoch 0
 agree to ``CSV_TOL`` of each value (of 1 for the logits and losses that pass
@@ -70,6 +70,7 @@ from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint as tckp
 from image2video_synthesis_using_cinns_tpu_torch.utils import convert
 from test_torch_port_stage1_step import jax_eps, stage1_variables, two_threads  # noqa: F401
 from test_torch_port_train_augment import jax_draws
+from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 P = PRESETS["tiny"]
 LR = 2e-5  # a tenth of the config's: see the module docstring
@@ -388,8 +389,8 @@ def test_cli_trains_on_cpu_and_warns_once_without_i3d(world, tmp_path, monkeypat
 
 def test_unported_option_raises_and_entry_points_default_to_cuda(world, monkeypatch):
     opt = _opt(tcfg, world, "port_raise", 1)
-    opt.Training["distributed"] = True
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    opt.Training["distributed"] = True  # torchrun's environment, which is not set here
+    with pytest.raises(RuntimeError, match="torchrun"):
         ts1.main(opt, eval_fvd=False, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -44,6 +44,7 @@ from image2video_synthesis_using_cinns_tpu_torch.train import optim as toptim
 from image2video_synthesis_using_cinns_tpu_torch.train import stage2 as tstage2
 from image2video_synthesis_using_cinns_tpu_torch.utils import convert
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 C, E, H, NF, B = 16, 12, 32, 4, 8
 

@@ -26,9 +26,10 @@ first loss by 0.2%), beside the JAX trainer.
   package's bounds for the cache's encoder batch against the step's).
 * The CLI trains and writes its files; a SIGTERM through ``PreemptionGuard``
   stops the run after the step it came in and writes ``cINN_latest``;
-  ``Training.distributed`` raises, and so does ``cache_posteriors`` with the
-  augmentation on, before any model is built; the entry points default to
-  ``cuda``; the config the trainer writes reads back in both packages.
+  ``Training.distributed: true`` outside torchrun raises, and so does
+  ``cache_posteriors`` with the augmentation on, before any model is built;
+  the entry points default to ``cuda``; the config the trainer writes reads
+  back in both packages.
 """
 
 import csv
@@ -55,6 +56,7 @@ from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint as tckp
 from image2video_synthesis_using_cinns_tpu_torch.utils import convert
 from test_torch_port_train_augment import jax_draws
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 LR = 1e-5  # the tiny preset's stage-2 config
 LOSS_KEYS = ("Loss", "reference_nll_loss", "nlogdet_loss", "nll_loss")
@@ -311,7 +313,7 @@ def test_sigterm_stops_the_run_and_writes_latest(world, monkeypatch):
 
 
 @pytest.mark.parametrize("key,value,error,match", [
-    ("distributed", True, NotImplementedError, "slice 10"),
+    ("distributed", True, RuntimeError, "torchrun"),
     ("cache_posteriors", True, ValueError, "requires Data.aug: false")])
 def test_unported_options_raise(world, monkeypatch, key, value, error, match):
     """Refused before any model is built; the cache only with aug on."""

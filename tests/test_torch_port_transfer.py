@@ -41,6 +41,7 @@ from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel
 from image2video_synthesis_using_cinns_tpu_torch.testing import PRESETS, build_model
 from image2video_synthesis_using_cinns_tpu_torch.utils.convert import to_state_dict
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "tiny_transfer_v1.npz")
 SEED = 7  # the facade seed of the golden snapshot
