@@ -161,6 +161,24 @@ Phases (any failure raises and the script exits non-zero):
    windows: one reverse chain a replica a call, one forward chain for the
    query; the bf16 latency of two replicas beside one. Its training half
    runs as phase 7.
+   4k. Tensor parallelism (``parallel/tp.py``) and the width-sharded decoder
+   (``parallel/spatial.py``) at the full BAIR preset, in one counted window:
+   ``Model(data_parallel=..., spatial_shard=2)`` over two entries of
+   ``cuda:0`` (one row of two: bs 1 at 16 frames, the latency case; bs 6
+   at 24, the extension) and over four (a 2 x 2 grid, bs 7), fp32 and bf16
+   decoder, a landscape ``transfer_sample`` on a 1 x 2 grid, and
+   ``testing.dryrun_multichip(["cuda:0"] * 4, "bair")`` (one tensor-parallel
+   stage-2 step, the padded eval, the cached loss and step, data-parallel
+   sampling from the trained flow gathered, packed and through
+   ``flow_reverse_fused``, the width-sharded and data x spatial decodes).
+   Checks: fp32 videos and z against one device (``DP_TOL``); bf16 within
+   ``SP_BF16_MEAN_TOL`` mean abs of the one-device fp32 video (the largest
+   error printed); one reverse chain a data row a call and one forward for
+   the query, each one device kernel; one tensor-parallel stage-2 step on a
+   2 x 2 grid against the one-device step in fp64 at bs 10 (loss terms,
+   gradients against each tensor's largest, weights after the step:
+   ``PAR_TOL``). Then each setup's latency beside one device's at the same
+   batch, and the fp32 step at bs 50 beside the one-device step.
 5. Timings: each kernel's median ms beside its plain version and its bound;
    the reverse chain at B = 1, 6 and 16; where a chain's time goes, from the
    timeline build (per layer and pass, and the kernel's own span), and a
@@ -198,9 +216,12 @@ Phases (any failure raises and the script exits non-zero):
    (``PAR_TOL``; gradients against each tensor's largest); the sharded cache
    equals the one-process cache bitwise; rank 0 alone writes; both groups
    all-reduce on the card. The fp32 runs' and the AE's fp64 run's
-   differences and each process's step and job times are printed.
-8. A ``{"kernels": [...]}`` line (launches summed over the thirteen counted
-   windows), then the last line ``{"ok": true, "device": {...}}``.
+   differences and each process's step and job times are printed; for fp32
+   stage 2 and the AE's fp64 run, the element with the largest two-rank gap
+   and both runs' gradients there at each step, on their own batches.
+8. A ``{"kernels": [...]}`` line (launches summed over the fourteen counted
+   windows, 4k's the fourteenth), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Exits non-zero without a result when no CUDA device is visible, and when the
 port's package is not beside it.
@@ -2703,6 +2724,7 @@ PAR_TIMEOUT = 900  # seconds for each spawned process
 # the card's; the fp32 runs' differences are reported beside them
 PAR_TOL = dict(rtol=1e-5, atol=1e-7)
 PAR_STEP64_SEED = 4242
+ADAM_EPS = 1e-8  # every trainer's Adam (train/optim.py)
 
 def dp_close(key: str, got, want) -> None:
     """Log max |got - want|; raise unless allclose at ``DP_TOL``."""
@@ -2830,6 +2852,263 @@ def phase_dp_serving(card: str):
     return launches, device_launches
 
 
+SP_CASES = (("spatial 1x2", 1, 16), ("spatial 1x2", 6, 24), ("data x spatial 2x2", 7, 16))
+SP_SETUPS = {"spatial 1x2": dict(data_parallel=["cuda:0"] * 2, spatial_shard=2),
+             "data x spatial 2x2": dict(data_parallel=["cuda:0"] * 4, spatial_shard=2)}
+SP_ROWS = {"spatial 1x2": 1, "data x spatial 2x2": 2}  # data rows: one reverse chain each
+SP_BF16_MEAN_TOL = 2e-2  # test_torch_port_model.py::test_sample_draws_and_bf16_decoder's bound
+SP_TIMED_RUNS = 7
+TP_GRID = (2, 2)  # dryrun_multichip's grid on four entries: 2 data rows of 2 model devices
+TP_F64_BATCH, TP_F32_BATCH, TP_TIMED_STEPS = 10, 50, 5
+
+
+def _latency_ms(call, runs: int) -> float:
+    """The median host time of ``runs`` calls after one warm-up, each ending
+    in a synchronisation."""
+    import torch
+
+    ms = []
+    with torch.no_grad():
+        for _ in range(runs + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms[1:])
+
+
+def _joined(leaf, grad: bool = False):
+    """A flow leaf whole: a tensor-parallel ``Split``'s shards joined."""
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.parallel import tp
+
+    parts = list(leaf) if isinstance(leaf, tp.Split) else [leaf]
+    ts = [(q.grad if grad else q).detach().to(parts[0].device) for q in parts]
+    return torch.cat(ts, dim=leaf.dim) if isinstance(leaf, tp.Split) else ts[0]
+
+
+def _flow_leaves(blocks: dict) -> dict:
+    """``{name: leaf}`` of a ``blocks_dict()`` tree, whole or sharded."""
+    out = {"loc": blocks["loc"], "scale": blocks["scale"]}
+    for net, layers in blocks["coupling"].items():
+        for li, (w, b) in enumerate(layers):
+            out[f"{net}.l{li}.weight"], out[f"{net}.l{li}.bias"] = w, b
+    return out
+
+
+def phase_tp_spatial(card: str, one: dict, t_one):
+    """Phase 4k (``one``: phase 4's fp32 and bf16 one-device models,
+    ``t_one``: phase 4b's fp32 landscape transfer model, each left at 16
+    frames): the width-sharded decoder and the tensor-parallel flow at
+    the full BAIR preset, in one counted window: ``Model(data_parallel=...,
+    spatial_shard=2)`` over two entries of ``cuda:0`` (one row of two: bs 1
+    at 16 frames, bs 6 at 24) and over a 2 x 2 grid of four entries (bs 7),
+    fp32 and bf16 decoder, one landscape transfer on a 1 x 2 grid, and
+    ``testing.dryrun_multichip`` over four entries (its data-parallel
+    sampling from the trained flow: one reverse chain a row). Checks: fp32
+    against one device at ``DP_TOL``, bf16 within ``SP_BF16_MEAN_TOL`` mean abs
+    of the one-device fp32 video; one chain a data row a call, each one device
+    kernel. Then each setup's latency beside one device's at the same batch,
+    one tensor-parallel stage-2 step against the one-device step in fp64 at
+    bs 10 (``PAR_TOL``; gradients against each tensor's largest) and the fp32
+    step at bs 50 timed beside the one-device step."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.models.stage1.resnet3d import Encoder
+    from image2video_synthesis_using_cinns_tpu_torch.models.stage2.inn import (
+        SupervisedTransformer)
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
+    from image2video_synthesis_using_cinns_tpu_torch.parallel import tp
+    from image2video_synthesis_using_cinns_tpu_torch.parallel.mesh import make_2d_mesh
+    from image2video_synthesis_using_cinns_tpu_torch.testing import (PRESETS, build_model,
+                                                                     configs, dryrun_multichip)
+    from image2video_synthesis_using_cinns_tpu_torch.train import stage2
+    from image2video_synthesis_using_cinns_tpu_torch.train.optim import adam_torch
+
+    p, tp_preset = PRESETS[PRESET], PRESETS[TRANSFER_PRESET]
+    img, timg, z_dim = p["img_size"], tp_preset["img_size"], p["z_dim"]
+    rng = np.random.default_rng(911)
+    x0 = torch.from_numpy(rng.uniform(-1, 1, (DP_BATCH, 3, img, img)).astype(np.float32)).to(DEVICE)
+    nu = torch.from_numpy(rng.standard_normal((DP_BATCH, z_dim)).astype(np.float32)).to(DEVICE)
+    q = torch.from_numpy(rng.uniform(-1, 1, (1, QUERY_FRAMES, 3, timg, timg))
+                         .astype(np.float32)).to(DEVICE)
+    tx0 = torch.from_numpy(rng.uniform(-1, 1, (BATCH, 3, timg, timg)).astype(np.float32)).to(DEVICE)
+    dts = ("float32", "bfloat16")
+    t0 = time.perf_counter()
+    sharded = {(name, dt): build_model(PRESET, vid_length=16, seed=0, compute_dtype=dt, **kw)
+               for name, kw in SP_SETUPS.items() for dt in dts}
+    t_sp = build_model(TRANSFER_PRESET, vid_length=16, seed=0, transfer=True,
+                       data_parallel=["cuda:0"] * 2, spatial_shard=2)
+    grids = {name: [[str(d) for d in row] for row in sharded[(name, "float32")].spatial]
+             for name in SP_SETUPS}
+    log(f"  serving grids (rows of model devices): {grids}; models built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.synchronize()
+    zero_counts()
+    got = {}
+    with torch.no_grad():
+        for dt in dts:
+            for name, b, t in SP_CASES:
+                m = sharded[(name, dt)]
+                m.vid_length = t
+                got[(name, dt, b, t)] = m.sample(x0[:b], residual=nu[:b])
+        got_t = t_sp.transfer_sample(q, tx0)
+    t_dry = time.perf_counter()
+    dry = dryrun_multichip(["cuda:0"] * (TP_GRID[0] * TP_GRID[1]), PRESET)
+    torch.cuda.synchronize()
+    t_dry = time.perf_counter() - t_dry
+    launches, device_launches = dict(fk.launches), dict(fk.device_launches)
+    want_rev = len(dts) * sum(SP_ROWS[name] for name, _, _ in SP_CASES) + 1 + TP_GRID[0]
+    log(f"  4k chain launches: {launches}; device kernels: {device_launches} (expected "
+        f"{want_rev} reverse: one a data row a call, {TP_GRID[0]} of them dryrun_multichip's "
+        "sampling from the tensor-parallel flow; 1 forward, the transfer's query)")
+    if launches != {"flow_reverse_fused": want_rev, "flow_forward_fused": 1}:
+        raise AssertionError(f"4k: chain launches {launches}")
+    if device_launches != launches:
+        raise AssertionError("4k: a chain launched other than one device kernel")
+    log(f"  dryrun_multichip(['cuda:0'] * 4, {PRESET!r}) in {t_dry:.2f} s: grid {dry['mesh']}, "
+        f"step {dry['metrics']}, padded eval {dry['padded_eval_gap']:.3g} and cached loss "
+        f"{dry['cached_gap']:.3g} of their bounds, cached step {dry['cached_metrics']}, "
+        f"sampled {dry['sample_shape']} finite, width-sharded decode "
+        f"{dry['spatial_err']:.3e}, data x spatial {dry['dp_spatial_err']:.3e} (bound 2e-3)")
+
+    with torch.no_grad():
+        for name, b, t in SP_CASES:
+            one["float32"].vid_length = t
+            want = one["float32"].sample(x0[:b], residual=nu[:b])
+            for dt in dts:
+                vid, z = got[(name, dt, b, t)]
+                check_video(f"{name} {dt} bs={b} T={t}", vid, (b, t, 3, img, img))
+                if dt == "float32":
+                    dp_close(f"{name} fp32 bs={b} T={t} video vs one device", vid, want[0])
+                else:
+                    mean = float((vid - want[0]).abs().mean())
+                    ok = mean <= SP_BF16_MEAN_TOL
+                    log(f"  {name} bf16 bs={b} T={t} video vs one device fp32: mean abs "
+                        f"{mean:.3e} (bound {SP_BF16_MEAN_TOL}), max abs "
+                        f"{max_err(vid, want[0]):.3e} ok={ok}")
+                    if not ok:
+                        raise AssertionError(f"{name} bf16: mean abs {mean:.3e}")
+                dp_close(f"{name} {dt} bs={b} z vs one device", z, want[1])
+        one["float32"].vid_length = 16
+        want_t = t_one.transfer_sample(q, tx0)
+    check_video(f"spatial 1x2 transfer {TRANSFER_PRESET} fp32", got_t[0],
+                (BATCH, 16, 3, timg, timg))
+    dp_close("spatial 1x2 transfer video vs one device", got_t[0], want_t[0])
+    dp_close("spatial 1x2 transfer z_ref vs one device", got_t[1], want_t[1])
+    del got, got_t, want, want_t
+
+    for dt in dts:
+        for name, b, t in SP_CASES:
+            m, o = sharded[(name, dt)], one[dt]
+            m.vid_length = o.vid_length = t
+            ms = _latency_ms(lambda: m.forward(x0[:b]), SP_TIMED_RUNS)
+            ms1 = _latency_ms(lambda: o.forward(x0[:b]), SP_TIMED_RUNS)
+            log(f"  [{card}] Model.forward {PRESET} {dt} bs={b} T={t}: {name} median {ms:.3f} ms, "
+                f"one device {ms1:.3f} ms ({ms / ms1:.3f}x; of {SP_TIMED_RUNS}, host-timed; the "
+                "shards share one card: the split's cost, not a scaling result)")
+    ms = _latency_ms(lambda: t_sp.transfer(q, tx0), SP_TIMED_RUNS)
+    ms1 = _latency_ms(lambda: t_one.transfer(q, tx0), SP_TIMED_RUNS)
+    log(f"  [{card}] Model.transfer {TRANSFER_PRESET} fp32 bs={BATCH} T=16: spatial 1x2 median "
+        f"{ms:.3f} ms, one device {ms1:.3f} ms ({ms / ms1:.3f}x)")
+    for m in one.values():
+        m.vid_length = 16
+    del sharded, t_sp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one tensor-parallel stage-2 step against the one-device step
+    s2, s1, ae = configs(PRESET)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(PAR_STEP64_SEED)
+        encoder = Encoder.from_config(s1.Encoder)
+        network = SupervisedTransformer.from_configs(s2, s1.Decoder, ae)
+    grid = make_2d_mesh(*TP_GRID, ["cuda:0"] * (TP_GRID[0] * TP_GRID[1]))
+    tr = TRAIN_CONFIG
+
+    def setup(dtype, n: int):
+        enc = copy.deepcopy(encoder).to(DEVICE, dtype).eval().requires_grad_(False)
+        net = copy.deepcopy(network).to(DEVICE, dtype).eval()
+        net.embedder.requires_grad_(False)
+        r = np.random.default_rng(PAR_STEP64_SEED)
+        seq = torch.from_numpy(r.uniform(-1, 1, (n, p["seq_length"], img, img, 3))
+                               ).to(DEVICE, dtype)
+        eps0, eps, ref = (torch.from_numpy(r.standard_normal((n, z_dim))).to(DEVICE, dtype)
+                          for _ in range(3))
+        cond = stage2.conditioning(seq, None)
+        with torch.no_grad():
+            post0 = enc(seq[:, 1:].permute(0, 4, 1, 2, 3), noise=eps0)[0].reshape(n, -1)
+            post = enc(seq[:, 1:].permute(0, 4, 1, 2, 3), noise=eps)[0].reshape(n, -1)
+        net.init_actnorm(post0, cond)
+        tp_net = copy.deepcopy(net)
+        tp_net.flow = tp.TensorParallelFlow(tp_net.flow, grid)
+        return net, tp_net, post, cond, ref
+
+    def adam(net):
+        return adam_torch(list(net.flow.parameters()), tr["lr"], betas=(tr["beta1"], tr["beta2"]),
+                          weight_decay=tr["weight_decay"], amsgrad=bool(tr["amsgrad"]))
+
+    net, tp_net, post, cond, ref = setup(torch.float64, TP_F64_BATCH)
+    aux1 = stage2._flow_step(net, adam(net), post, cond, ref)
+    aux2 = stage2._flow_step(tp_net, adam(tp_net), post, cond, ref)
+    share = {"loss": 0.0, "grad": 0.0, "flow": 0.0}
+    worst = {}
+
+    def used(group: str, name: str, a, b, over_largest: bool = False) -> None:
+        d = (a.double() - b.double()).abs()
+        scale = b.double().abs().max() if over_largest else b.double().abs()
+        u = float((d / (PAR_TOL["atol"] + PAR_TOL["rtol"] * scale)).max())
+        if u >= share[group]:
+            share[group], worst[group] = u, name
+
+    for k in aux1:
+        used("loss", k, aux2[k].reshape(1), aux1[k].reshape(1))
+    leaves1, leaves2 = _flow_leaves(net.flow.blocks_dict()), _flow_leaves(tp_net.flow.blocks_dict())
+    for k, leaf in leaves1.items():
+        used("grad", k, _joined(leaves2[k], grad=True), leaf.grad, over_largest=True)
+        used("flow", k, _joined(leaves2[k]), leaf.detach())
+    ok = max(share.values()) <= 1.0
+    log(f"  tensor-parallel stage-2 step on a {TP_GRID[0]} x {TP_GRID[1]} grid vs one device, "
+        f"fp64, bs {TP_F64_BATCH}: the largest share of the bound (rtol {PAR_TOL['rtol']}, atol "
+        f"{PAR_TOL['atol']}; grad: of its tensor's largest) "
+        + ", ".join(f"{g} {share[g]:.3g} ({worst.get(g)})" for g in share) + f" ok={ok}")
+    if not ok:
+        raise AssertionError(f"4k: the tensor-parallel fp64 step differs from one device: {share}")
+    del net, tp_net, post, cond, ref
+
+    net, tp_net, post, cond, ref = setup(torch.float32, TP_F32_BATCH)
+    opts = {"one device": (net, adam(net)), f"tensor-parallel {TP_GRID[0]}x{TP_GRID[1]}":
+            (tp_net, adam(tp_net))}
+    times, first = {}, {}
+    for label, (n_, o_) in opts.items():
+        ms = []
+        for i in range(TP_TIMED_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = stage2._flow_step(n_, o_, post, cond, ref)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                first[label] = {k: float(v) for k, v in aux.items()}
+        times[label] = statistics.median(ms[1:])
+    (l1, a1), (l2, a2) = first.items()
+    log(f"  [{card}] stage-2 flow step fp32 bs {TP_F32_BATCH} (embedder, flow by autograd, "
+        f"Adam): {l1} median {times[l1]:.3f} ms, {l2} {times[l2]:.3f} ms "
+        f"({times[l2] / times[l1]:.3f}x; of {TP_TIMED_STEPS}, host-timed, four entries of one "
+        f"card); first step's loss terms max abs gap "
+        f"{max(abs(a1[k] - a2[k]) for k in a1):.3e} (reported)")
+    del net, tp_net, opts, encoder, network
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, device_launches
+
+
 def par_configs(tmp: Path) -> dict:
     """The configs of the multi-process jobs (no ``distributed`` yet): stage 2
     at bs 50 on phase 4d's splits, chained to 4e's stage-1 run and 4f's AE,
@@ -2880,13 +3159,14 @@ def par_configs(tmp: Path) -> dict:
 
 # the jobs, in the order each process runs them; the fp64 runs (the held
 # comparison) at smaller global batches and 2 steps, to keep the phase's time
-PAR_JOBS = (dict(tag="stage2", name="stage2"), dict(tag="stage2_cached", name="stage2_cached"),
+PAR_JOBS = (dict(tag="stage2", name="stage2", record=True),
+            dict(tag="stage2_cached", name="stage2_cached"),
             dict(tag="stage1", name="stage1"),
             dict(tag="stage1_fp64", name="stage1", fp64=True, max_steps=2,
                  training=dict(bs=4, bs_eval=4)),
             dict(tag="ae", name="ae"),
             dict(tag="ae_fp64", name="ae", fp64=True, max_steps=2, training=dict(bs=6),
-                 reported=True))
+                 reported=True, record=True))
 
 
 def par_step64(models, network, tr: dict, seq_len: int) -> dict:
@@ -2940,8 +3220,10 @@ def par_ae_step64(models, tr: dict) -> dict:
     gradients over the ranks; at lr 0 every later quantity is taken from the
     same weights in every process), the recompute (the BatchNorms' running
     statistics) and the spectral refresh. Returns the global batch's metrics
-    (``loss/``), each optimizer's gradients as it applied them (``grad/``)
-    and the modules' state after the step (``state64/``)."""
+    (``loss/``), each optimizer's gradients as it applied them (``grad/``,
+    keyed by their tensors' names in the run's weights: ``network/...``,
+    ``disc/...``, ``logvar``) and the modules' state after the step
+    (``state64/``)."""
     import copy
 
     import numpy as np
@@ -2958,12 +3240,16 @@ def par_ae_step64(models, tr: dict) -> dict:
     x = x.to(DEVICE)
     layers.init_actnorm(m.disc, x)
     optimizers = stage2_ae.make_optimizers(m, 0.0, tr["weight_decay"])
+    names = {id(p): f"{net_name}/{k}" for net_name, net in (("network", m.network),
+                                                            ("disc", m.disc))
+             for k, p in net.named_parameters()}
+    names[id(m.logvar)] = "logvar"
     out = {}
-    for name, o in zip(("GEN", "DISC"), optimizers):
-        def step(o=o, name=name, apply=o.step):
+    for o in optimizers:
+        def step(o=o, apply=o.step):
             apply()
-            for i, p in enumerate(o.param_groups[0]["params"]):
-                out[f"grad/{name}/{i}"] = p.grad.cpu().numpy()
+            for p in o.param_groups[0]["params"]:
+                out[f"grad/{names[id(p)]}"] = p.grad.cpu().numpy()
         o.step = step
     metrics, _ = stage2_ae.AEStep(m, optimizers, tr)(x, 1)
     out.update({f"loss/{k}": np.float64(v)
@@ -2983,7 +3269,10 @@ def par_job(job: dict, config: str, out: Path, save: bool, builds: dict) -> dict
     matters. The trained modules' weights and buffers (the posterior cache;
     for stage 2 also ``par_step64``'s) are saved to ``<out>/<tag>.npz`` when
     ``save``, and their digest returned beside the logged losses, each
-    step's time, the job's wall time and the files written."""
+    step's time, the job's wall time and the files written. With
+    ``job["record"]`` and ``save``, every ``Adam`` step's gradients as it
+    applied them (averaged over the ranks; fp32 copies) go to
+    ``<out>/<tag>_grads.npz``, keyed ``<tensor>@<step>``."""
     import contextlib
     import copy
     import hashlib
@@ -2996,14 +3285,31 @@ def par_job(job: dict, config: str, out: Path, save: bool, builds: dict) -> dict
     from image2video_synthesis_using_cinns_tpu_torch.parallel import distributed
     from image2video_synthesis_using_cinns_tpu_torch.testing import float64_training
     from image2video_synthesis_using_cinns_tpu_torch.train import stage1, stage1_step, stage2
-    from image2video_synthesis_using_cinns_tpu_torch.train import stage2_ae
+    from image2video_synthesis_using_cinns_tpu_torch.train import optim, stage2_ae
     from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint as ckpt_io
 
     tag, name, fp64 = job["tag"], job["name"], job["fp64"]
     trainer = "stage2" if name.startswith("stage2") else name
     module = {"stage2": stage2, "stage1": stage1, "ae": stage2_ae}[trainer]
-    kept, step_s, ckpts = {}, [], []
+    kept, step_s, ckpts, grads = {}, [], [], {}
     t_job = time.perf_counter()
+
+    def nets(m) -> dict:
+        return ({"flow": m.network.flow} if name.startswith("stage2") else
+                stage1.networks(m) if name == "stage1" else {"network": m.network, "disc": m.disc})
+
+    def recorded(f):
+        def step(self, *a, **k):
+            r = f(self, *a, **k)
+            names = {id(p): f"{n}/{key}" for n, net in nets(kept["models"]).items()
+                     for key, p in net.named_parameters()}
+            for g in self.param_groups:
+                for p in g["params"]:
+                    if p.grad is not None and id(p) in names:
+                        n = sum(key.startswith(names[id(p)] + "@") for key in grads)
+                        grads[f"{names[id(p)]}@{n}"] = p.grad.detach().float().cpu().numpy()
+            return r
+        return step
 
     def shared(f):  # under the fp64 cast: each job casts its own copy
         def build(*a, **k):
@@ -3032,6 +3338,14 @@ def par_job(job: dict, config: str, out: Path, save: bool, builds: dict) -> dict
     patches = [(module, "build_models", keep),
                (ckpt_io.AsyncWriter, "save_async",
                 lambda f: lambda self, path, payload: ckpts.append(Path(path).name))]
+    # the writes are recorded, not written: the payloads (host copies of the
+    # weights and of the optimizers' moments, 4 GB an epoch for stage 1) are not built
+    patches += {"stage1": [(stage1, "variables", lambda f: lambda module: {}),
+                           (stage1, "optimizer_states", lambda f: lambda models, opts: {
+                               n: {} for n in stage1.networks(models)})],
+                "stage2": [(stage2, "network_variables", lambda f: lambda *a: {}),
+                           (stage2, "optax_state", lambda f: lambda *a: {})],
+                "ae": [(stage2_ae, "encoder_variables", lambda f: lambda models: {})]}[trainer]
     if name == "stage2_cached":
         for fn in ("build_cache", "assemble_cache_multiprocess"):
             patches.append((stage2, fn, lambda f: lambda *a, **k: kept.__setitem__(
@@ -3041,6 +3355,8 @@ def par_job(job: dict, config: str, out: Path, save: bool, builds: dict) -> dict
     patches.append(step_owner + (timed,) if step_owner else
                    (stage2, "cached_train_step" if name == "stage2_cached" else "train_step",
                     timed))
+    if job["record"] and save:
+        patches.append((optim.Adam, "step", recorded))
     build = module.build_models
     module.build_models = shared(build)
     try:
@@ -3064,10 +3380,7 @@ def par_job(job: dict, config: str, out: Path, save: bool, builds: dict) -> dict
     if distributed.is_primary():
         shutil.rmtree(res["save_path"])
     m = kept["models"]
-    nets = ({"flow": m.network.flow} if name.startswith("stage2") else
-            stage1.networks(m) if name == "stage1" else
-            {"network": m.network, "disc": m.disc})
-    arrays = {f"{n}/{k}": v.detach().cpu().numpy() for n, net in nets.items()
+    arrays = {f"{n}/{k}": v.detach().cpu().numpy() for n, net in nets(m).items()
               for k, v in net.state_dict().items()}
     if name == "ae":
         arrays["logvar"] = m.logvar.detach().cpu().numpy()
@@ -3083,7 +3396,9 @@ def par_job(job: dict, config: str, out: Path, save: bool, builds: dict) -> dict
         digest.update(k.encode() + np.ascontiguousarray(arrays[k]).tobytes())
     if save:
         np.savez(out / f"{tag}.npz", **arrays)
-    del kept, arrays
+    if grads:
+        np.savez(out / f"{tag}_grads.npz", **grads)
+    del kept, arrays, grads
     keys = ("train_metrics", "eval_metrics") if name == "stage1" else ("train_loss", "eval_loss")
     vals = [list(res[k].values()) if isinstance(res[k], dict) else list(res[k]) for k in keys]
     return {"train": [float(v) for v in vals[0]], "eval": [float(v) for v in vals[1]],
@@ -3166,6 +3481,43 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def par_gap_source(w2: dict, w1: dict, g2, g1) -> str:
+    """The weight of a job's arrays (two ranks ``w2``, one process ``w1``)
+    with the largest two-rank gap, and at that element each run's gradient
+    at each of its steps, on its own batches, as Adam applied it (``g2``,
+    ``g1``: the runs' ``<tag>_grads.npz``): the two values, their gap as a
+    share of the larger, whether their signs agree, and the larger against
+    the tensor's largest gradient and Adam's eps. Adam's first steps move a
+    weight by about lr in the gradient's sign, so where the two runs'
+    gradients are tiny beside their tensor's and of opposite sign, rounding
+    can explain a gap of a few lr; where they are large, it cannot."""
+    import numpy as np
+
+    keys = [k for k in w1 if k.split("/")[0] not in ("loss", "grad", "flow64", "state64",
+                                                     "cache")
+            and k.rsplit(".", 1)[-1] not in ("u", "v", "mean", "var")]
+    k = max(keys, key=lambda k: float(np.abs(w2[k].astype(np.float64) - w1[k]).max(
+        initial=0)))
+    d = np.abs(w2[k].astype(np.float64) - w1[k])
+    idx = tuple(int(i) for i in np.unravel_index(int(np.argmax(d)), d.shape)) if d.ndim else ()
+    steps = sorted(int(s.rsplit("@", 1)[1]) for s in g1.files if s.rsplit("@", 1)[0] == k)
+    if not steps:
+        return f"largest gap {float(d.max()):.3e} in {k}{list(idx)}: no recorded gradient"
+    parts = []
+    for s in steps:
+        a, b = g1[f"{k}@{s}"], g2[f"{k}@{s}"]
+        x, y = float(a[idx]), float(b[idx])
+        big = max(abs(x), abs(y))
+        largest = float(max(np.abs(a).max(), np.abs(b).max()))
+        parts.append(f"step {s}: one process {x:.3e}, two ranks {y:.3e} (gap "
+                     f"{abs(x - y) / big if big else 0.0:.3e} of the larger, signs "
+                     f"{'agree' if x * y > 0 else 'differ'}; the larger {big / largest:.3e} "
+                     f"of the tensor's largest {largest:.3e}, {big / ADAM_EPS:.3e} x Adam's "
+                     f"eps)")
+    return (f"largest gap {float(d.max()):.3e} in {k}{list(idx)}; each run's gradient there "
+            "on its own batches, as Adam applied it: " + "; ".join(parts))
+
+
 def phase_parallel_train(card: str, tmp: Path):
     """The trainers' mains (``PAR_JOBS``): each once in this process, in a
     one-rank NCCL group, then in two spawned ranks of a gloo group
@@ -3201,6 +3553,7 @@ def phase_parallel_train(card: str, tmp: Path):
                 cfg.save(o, paths[-1])
             jobs.append({"tag": job_tag, "name": name, "fp64": job.get("fp64", False),
                          "max_steps": job.get("max_steps"), "configs": paths,
+                         "record": job.get("record", False),
                          "eval_fvd": name == "stage2"})
         return {"jobs": jobs, "tmp": str(tmp), "out": str(out / tag), "tag": tag,
                 "save": save}
@@ -3288,12 +3641,17 @@ def phase_parallel_train(card: str, tmp: Path):
             + ", ".join(f"{g} {absolute[g]:.3e} ({e[g]:.3g})" for g in e)
             + f"; held: {held or 'none'}" + (" (the rest reported)" if held != sorted(e) else "")
             + (" ok" if not bad else " FAIL"))
+        if job.get("record"):  # the two card readings ROADMAP asks to settle
+            with np.load(Path(ranks_spec["out"]) / f"{tag}_grads.npz") as g2, \
+                    np.load(Path(one_spec["out"]) / f"{tag}_grads.npz") as g1:
+                log(f"  {tag}: " + par_gap_source(w2, w1, g2, g1))
         if bad:
             raise AssertionError(f"{tag}: two ranks differ from one process beyond PAR_TOL in "
                                  f"{bad}")
         errs[tag] = e
         for sp in (one_spec, ranks_spec):
-            (Path(sp["out"]) / f"{tag}.npz").unlink()
+            for f in (f"{tag}.npz", f"{tag}_grads.npz"):
+                (Path(sp["out"]) / f).unlink(missing_ok=True)
     return errs
 
 
@@ -3692,6 +4050,10 @@ def main() -> int:
         t0 = time.perf_counter()
         dp_launches, dp_device_launches = phase_dp_serving(card)
         log(f"  DP serving took {time.perf_counter() - t0:.2f} s")
+        log("== 4k. tensor parallelism and the width-sharded decoder (BAIR preset)")
+        t0 = time.perf_counter()
+        sp_launches, sp_device_launches = phase_tp_spatial(card, models, t_models["float32"])
+        log(f"  phase 4k took {time.perf_counter() - t0:.2f} s")
 
         log("== 5. timings")
         rows = phase_timings(card, models, x0, residual)
@@ -3732,7 +4094,7 @@ def main() -> int:
 
     # each kernel at the shape its path gives it, in that path's mode (bf16
     # weights): the reverse at the BAIR sampling path's B=6, E=64, the forward
-    # at the transfer's one query, B=1, E=128; launches over all thirteen windows;
+    # at the transfer's one query, B=1, E=128; launches over all fourteen windows;
     # beside them each in the training path's fp32-weight mode at B=10, E=64
     kernels = []
     for name, line, r, shape, err_key in (
@@ -3746,12 +4108,14 @@ def main() -> int:
             "replaces": f"{PALLAS_KERNEL}:{line}",
             "launches": (launches[name] + t_launches[name] + e_launches[name] + tr_launches[name]
                          + s1_launches[name] + ae_launches[name] + ep_launches[name]
-                         + ref_launches[name] + c_launches[name] + dp_launches[name]),
+                         + ref_launches[name] + c_launches[name] + dp_launches[name]
+                         + sp_launches[name]),
             "device_launches": (device_launches[name] + t_device_launches[name]
                                 + e_device_launches[name] + tr_device_launches[name]
                                 + s1_device_launches[name] + ae_device_launches[name]
                                 + ep_device_launches[name] + ref_device_launches[name]
-                                + c_device_launches[name] + dp_device_launches[name]),
+                                + c_device_launches[name] + dp_device_launches[name]
+                                + sp_device_launches[name]),
             "shape": f"{shape} hidden 512 20 blocks, bf16 weights",
             "max_abs_err": errs[err_key],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -4,7 +4,7 @@ root ``eval_diversity.py``)::
     python -m image2video_synthesis_using_cinns_tpu_torch.cli.eval_diversity \
         -dataset bair -data_path DATA/ [-ckpt_path DIR/] [-seq_length 16] [-bs 6] \
         [-n_realiz 5] [-VGG 1] [-I3D 1] [-DTI3D 1] [-compute_dtype bfloat16] \
-        [-device cuda] [-gpu 0] [-data_parallel]
+        [-device cuda] [-gpu 0] [-data_parallel] [-spatial_shard N]
 
 Seed 249; each eval batch is sampled ``-n_realiz`` times and fed to a
 ``DiversityStream``. The residuals nu are drawn up front realisation-major
@@ -12,7 +12,7 @@ Seed 249; each eval batch is sampled ``-n_realiz`` times and fed to a
 (realisation, batch) pair gets the noise the reference's realisation-major
 loop gave it, while the loop runs batch-major. ``-device`` defaults to
 ``cuda``; ``-data_parallel`` splits each batch over the serving replicas and
-``-spatial_shard`` raises, as in ``generate_samples``.
+``-spatial_shard N`` width-shards the decoder, as in ``generate_samples``.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ the root ``eval_synthesis_quality.py``)::
     python -m image2video_synthesis_using_cinns_tpu_torch.cli.eval_synthesis_quality \
         -dataset bair -data_path DATA/ [-ckpt_path DIR/] [-seq_length 16] [-bs 6] \
         [-FID 1] [-LPIPS 1] [-FVD 1] [-DTFVD 1] [-compute_dtype bfloat16] \
-        [-device cuda] [-gpu 0] [-data_parallel]
+        [-device cuda] [-gpu 0] [-data_parallel] [-spatial_shard N]
 
 Seed 249; the eval loader reads ``seq_length + 1`` frames per clip; the
 dataset's frame concatenation (BAIR: GT frame 0 prepended, the last
@@ -12,7 +12,8 @@ generated frame dropped; iPER: GT frame 0 prepended; the others: the
 generated frames) feeds a ``SynthesisQualityStream``, whose backbones load
 from ``models/`` (a missing I3D or Inception file raises). ``-device``
 defaults to ``cuda``; ``-data_parallel`` splits each batch over the serving
-replicas and ``-spatial_shard`` raises, as in ``generate_samples``.
+replicas and ``-spatial_shard N``
+width-shards the decoder, as in ``generate_samples``.
 """
 
 from __future__ import annotations

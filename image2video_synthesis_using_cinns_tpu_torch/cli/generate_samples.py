@@ -3,7 +3,8 @@
 
     python -m image2video_synthesis_using_cinns_tpu_torch.cli.generate_samples \
         -dataset bair [-ckpt_path DIR/] [-seq_length 16] [-bs 6] [-seed 0] \
-        [-compute_dtype bfloat16] [-device cuda] [-gpu 0] [-data_parallel]
+        [-compute_dtype bfloat16] [-device cuda] [-gpu 0] [-data_parallel] \
+        [-spatial_shard N]
 
 Reads every jpg/png/jpeg start frame under ``assets/GT_samples/<dataset>``
 (``<dataset>/<texture>`` for DTDB), scales it to [-1, 1] and resizes it to the
@@ -12,9 +13,11 @@ model's image size, samples videos in batches of ``-bs`` and writes
 ``models/<path>/stage2/``. ``-device`` defaults to ``cuda`` (``-gpu`` picks the
 card). ``-data_parallel`` serves one replica per card over every visible
 card, splitting each batch across them (``Model(data_parallel=True)``;
-``CUDA_VISIBLE_DEVICES`` picks the cards). ``-spatial_shard`` (the
-width-sharded decoder) is kept on the parser and raises: it is not ported
-yet.
+``CUDA_VISIBLE_DEVICES`` picks the cards). ``-spatial_shard N`` splits the
+decoder's width over N cards for the latency of one video
+(``Model(spatial_shard=N)``); beside ``-data_parallel`` the visible cards
+form a (data, model) grid with N on the model axis. ``0``, the default, is
+off.
 """
 
 from __future__ import annotations
@@ -46,23 +49,23 @@ def add_serving_flags(parser: argparse.ArgumentParser) -> None:
                         help="serve one replica per card over every visible card, each batch "
                              "split across them")
     parser.add_argument("-spatial_shard", type=int, default=0,
-                        help="not ported yet: raises (ROADMAP slice 11)")
+                        help="width-shard the decoder over N cards for single-video latency "
+                             "(composes with -data_parallel via a 2-D (data, model) grid; "
+                             "0 = off)")
 
 
 def serving_device(args: argparse.Namespace) -> str:
-    """The device the flags ask for; raises on ``-spatial_shard``."""
-    if args.spatial_shard:
-        raise NotImplementedError(
-            "-spatial_shard: the width-sharded decoder is not ported yet (ROADMAP slice 11)"
-            + (", with or without -data_parallel" if args.data_parallel else ""))
+    """The device the flags ask for."""
     if args.device == "cuda" and args.gpu is not None:
         return f"cuda:{int(args.gpu)}"
     return args.device
 
 
 def serving_options(args: argparse.Namespace) -> dict:
-    """``Model``'s ``device`` and ``data_parallel`` as the flags ask for them."""
-    return {"device": serving_device(args), "data_parallel": args.data_parallel}
+    """``Model``'s ``device``, ``data_parallel`` and ``spatial_shard`` as the
+    flags ask for them."""
+    return {"device": serving_device(args), "data_parallel": args.data_parallel,
+            "spatial_shard": args.spatial_shard or False}
 
 
 def read_frames(names: list[str], img_res: int) -> np.ndarray:

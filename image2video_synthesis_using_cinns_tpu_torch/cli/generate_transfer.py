@@ -3,7 +3,7 @@
 
     python -m image2video_synthesis_using_cinns_tpu_torch.cli.generate_transfer \
         -dataset landscape [-ckpt_path DIR/] [-seq_length 16] \
-        [-compute_dtype bfloat16] [-device cuda] [-gpu 0] [-data_parallel]
+        [-compute_dtype bfloat16] [-device cuda] [-gpu 0] [-data_parallel] [-spatial_shard N]
 
 Reads one frame sequence per folder of ``assets/GT_samples/landscape/transfer/``
 (folders and frames in natural order, at most ``-seq_length`` frames each),
@@ -11,8 +11,8 @@ transfers each query video's motion onto the first frames of all videos, in
 batches of 6 (the reference parses ``-bs`` but batches by 6), prepends the
 query's own row and writes ``assets/results/landscape/transfer_<idx>.gif``.
 ``-device``, ``-gpu``, ``-data_parallel`` (the start frames split across the
-replicas; the query is encoded once) and ``-spatial_shard`` (raises) are as
-in ``generate_samples``.
+replicas; the query is encoded once) and ``-spatial_shard N`` (the decoder's width
+split over N cards) are as in ``generate_samples``.
 """
 
 from __future__ import annotations

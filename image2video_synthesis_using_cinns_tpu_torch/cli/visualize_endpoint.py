@@ -4,7 +4,7 @@ root ``visualize_endpoint.py``; BAIR only)::
     python -m image2video_synthesis_using_cinns_tpu_torch.cli.visualize_endpoint \
         -dataset bair -data_path DATA/ [-ckpt_path DIR/] [-seq_length 16] \
         [-n_samples 15] [-n_realiz 8] [-bs 6] [-compute_dtype bfloat16] \
-        [-device cuda] [-gpu 0] [-data_parallel]
+        [-device cuda] [-gpu 0] [-data_parallel] [-spatial_shard N]
 
 Loads the control model (``models/bair/stage2_control/`` by default), reads
 the BAIR endpoint test split (``seq_length + 1`` frames a clip and the
@@ -13,7 +13,8 @@ realisations samples ``Model(x0, cond=target)`` over the batches until
 ``-n_samples`` videos; writes ``assets/results/bair_endpoint/endpoint_<i>.gif``
 (the realisations side by side) and ``endpoint_<i>.png`` (their last frames).
 ``-device`` defaults to ``cuda``; ``-data_parallel`` splits each batch over
-the serving replicas and ``-spatial_shard`` raises, as in ``generate_samples``.
+the serving replicas and ``-spatial_shard N``
+width-shards the decoder, as in ``generate_samples``.
 """
 
 from __future__ import annotations

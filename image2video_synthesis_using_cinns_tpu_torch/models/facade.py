@@ -30,11 +30,23 @@
   query and runs the forward chain once, on the first device, and splits
   the start frames.
 
+* ``spatial_shard``: the decoder's width split over the ``model`` devices
+  of each data row (``parallel/spatial.py``), which lowers the latency of a
+  single video. ``True`` puts every visible card on the ``model`` axis, an
+  int that many of the devices; beside ``data_parallel`` (then an int) the
+  devices form the row-major ``(n_dp, n_sp)`` grid of
+  ``parallel/mesh.py::make_2d_mesh`` (``data_parallel=["cpu"] * 2,
+  spatial_shard=2`` is one row of two CPU devices).
+  Each data row holds one flow replica and one decoder replica on its first
+  device, with copies of the decoder on its other model devices; each chunk
+  of 16 frames is decoded sharded and gathered on the row's first device
+  before the extension takes its last frame. The JAX facade's
+  ``ValueError``s hold: ``True`` beside ``data_parallel``, a size
+  under 2, a size that does not divide the devices.
+
 The boundary keeps the JAX facade's layout: x0 (B, C, H, W), videos
 (B, T, C, H, W), in [-1, 1]. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; without a card and without a device, they raise.
-``spatial_shard`` (the JAX package's width-sharded decoder) is not ported
-and raises.
 """
 
 from __future__ import annotations
@@ -46,7 +58,8 @@ import numpy as np
 import torch
 
 from .. import config as cfg
-from ..parallel.mesh import make_mesh, pad_to_multiple, replicate, shard_batch
+from ..parallel import spatial
+from ..parallel.mesh import make_2d_mesh, make_mesh, pad_to_multiple, replicate, shard_batch
 from ..utils import checkpoint as ckpt_io
 from ..utils import convert
 from .stage1.decoder import Generator
@@ -77,10 +90,13 @@ def _as_tensor(a, device: torch.device) -> torch.Tensor:
 
 @dataclass
 class Replica:
-    """The serving modules on one device."""
+    """The serving modules of one data row, on its first device; with
+    ``spatial_shard``, ``peers`` are the decoder's copies on the row's model
+    devices (the first is ``decoder``)."""
 
     decoder: Generator
     flow: SupervisedTransformer
+    peers: list[Generator] | None = None
 
 
 class Model:
@@ -88,7 +104,7 @@ class Model:
                  use_kernel: bool = True, allow_random_init: bool = False,
                  compute_dtype: str = "float32", device: str | torch.device | None = None,
                  data_parallel: bool | list = False, spatial_shard: bool | int = False):
-        mesh = _check_parallel(data_parallel, spatial_shard, device)
+        grid = _check_parallel(data_parallel, spatial_shard, device)
         config = cfg.load(_join(model_path, "config_stage2.yaml"))
         fs = config.First_stage_model
         path_stage1 = _join(fs["model_path"], fs["model_name"])
@@ -128,7 +144,7 @@ class Model:
                 flow.embedder.load_state_dict(convert.to_state_dict(emb_vars))
 
         self._setup(config, config_stage1, ae_cfg, vid_length, transfer, seed, use_kernel,
-                    compute_dtype, device, load_weights, mesh)
+                    compute_dtype, device, load_weights, grid)
 
     @classmethod
     def from_configs(cls, config, config_stage1, ae_cfg, vid_length: int, transfer: bool = False,
@@ -145,18 +161,20 @@ class Model:
                 if module is not None and name in state_dicts:
                     module.load_state_dict(state_dicts[name])
 
-        mesh = _check_parallel(data_parallel, spatial_shard, device)
+        grid = _check_parallel(data_parallel, spatial_shard, device)
         self = cls.__new__(cls)
         self._setup(config, config_stage1, ae_cfg, vid_length, transfer, seed, use_kernel,
-                    compute_dtype, device, load_weights if state_dicts else None, mesh)
+                    compute_dtype, device, load_weights if state_dicts else None, grid)
         return self
 
     def _setup(self, config, config_stage1, ae_cfg, vid_length, transfer, seed, use_kernel,
-               compute_dtype, device, load_weights, mesh) -> None:
+               compute_dtype, device, load_weights, grid) -> None:
         self.config = config
         self.config_stage1 = config_stage1
-        self.mesh = mesh
-        self.device = mesh[0] if mesh is not None else resolve_device(device)
+        # the data-parallel devices (each row's first) and, with spatial_shard, the grid
+        self.mesh = None if grid is None else [row[0] for row in grid]
+        self.spatial = grid if grid is not None and len(grid[0]) > 1 else None
+        self.device = self.mesh[0] if grid is not None else resolve_device(device)
         self.z_dim = config_stage1.Decoder["z_dim"]
         self.vid_length = vid_length
         if compute_dtype not in _DTYPES:
@@ -180,10 +198,12 @@ class Model:
         self.encoder = None if encoder is None else encoder.to(self.device).eval()
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
-        others = (mesh or [])[1:]  # the encoder runs once, on the first device
+        others = (self.mesh or [])[1:]  # the encoder runs once, on the first device
         self.replicas = [Replica(self.decoder, self.flow)] + [
             Replica(d, f) for d, f in zip(replicate(others, self.decoder),
                                           replicate(others, self.flow))]
+        for rep, row in zip(self.replicas, self.spatial or []):
+            rep.peers = [rep.decoder] + replicate(row[1:], rep.decoder)
 
     # ------------------------------------------------------------------
     def draw_residual(self, batch_size: int) -> torch.Tensor:
@@ -192,13 +212,15 @@ class Model:
         return torch.randn((batch_size, self.z_dim), generator=self._generator,
                            device=self.device)
 
-    def _render(self, decoder: Generator, x0: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        """Decode z from x0 and extend autoregressively from the last frame to
+    def _render(self, rep: Replica, x0: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """Decode z from x0 on ``rep`` (width-sharded over its peers, each
+        chunk gathered) and extend autoregressively from the last frame to
         ``vid_length`` frames, truncated on the time axis: (B, T, C, H, W)."""
         dt = self.compute_dtype
+        decoder = rep.decoder
 
         def decode(img):
-            return decoder(img.to(dt), z.to(dt)).float()
+            return spatial.gather(decoder(img.to(dt), z.to(dt), rep.peers)).float()
 
         seq = decode(x0)  # (B, 3, T, H, W)
         n_repeats = max(0, -(-self.vid_length // decoder.base_frames) - 1)
@@ -213,7 +235,7 @@ class Model:
         batch ``rows`` (padded to the device multiple), every replica's work
         issued before any is gathered; the outputs' rows concatenated on the
         first device, the pad dropped."""
-        if self.mesh is None:
+        if len(self.replicas) == 1:
             return run(self.replicas[0], *rows)
         b = rows[0].shape[0]
         padded, _ = pad_to_multiple(list(rows), len(self.mesh))
@@ -237,7 +259,7 @@ class Model:
         def run(rep: Replica, x0, residual, cond):
             conds = [x0] if cond is None else [x0, cond]
             z = rep.flow.reverse(residual, conds).reshape(x0.shape[0], -1)
-            return self._render(rep.decoder, x0, z), z
+            return self._render(rep, x0, z), z
 
         return self._on_replicas(run, x0, residual, cond)
 
@@ -269,7 +291,7 @@ class Model:
 
         def run(rep: Replica, x0, nu):
             z_ref = rep.flow.reverse(nu, [x0]).reshape(x0.shape[0], -1)
-            return self._render(rep.decoder, x0, z_ref), z_ref
+            return self._render(rep, x0, z_ref), z_ref
 
         return self._on_replicas(run, x0, nu)
 
@@ -278,22 +300,41 @@ class Model:
         return self.transfer_sample(seq_query, x_0)[0]
 
 
-def _check_parallel(data_parallel, spatial_shard, device) -> list[torch.device] | None:
-    """The serving devices ``data_parallel`` asks for (None when it is off):
-    ``True`` every visible card, a list those devices; ``device``, when
-    given, must name the first of them (``cuda`` names ``cuda:0``). Raises on
-    ``spatial_shard``, which is not ported."""
+def _check_parallel(data_parallel, spatial_shard, device) -> list[list[torch.device]] | None:
+    """The serving grid that ``data_parallel`` and ``spatial_shard`` ask for,
+    one row of ``model`` devices per data-parallel replica (None when both
+    are off), with the JAX facade's checks (``facade.py:150-188``).
+    ``data_parallel``: ``True`` every visible card, a list those devices.
+    ``spatial_shard``: ``True`` every visible card on the ``model`` axis, an
+    int that many of the devices. ``device``, when given, must name the
+    grid's first device (``cuda`` names ``cuda:0``)."""
     if spatial_shard:
-        raise NotImplementedError(
-            "spatial_shard: the width-sharded decoder (parallel/spatial.py) is not ported yet "
-            "(ROADMAP slice 11)" + (", with or without data_parallel" if data_parallel else ""))
-    if data_parallel is False or data_parallel is None:
+        if spatial_shard is True:
+            if data_parallel:
+                raise ValueError(
+                    "composing data_parallel with spatial_shard needs an explicit spatial axis "
+                    "size: pass spatial_shard=<int> (devices are split into a 2-D (data, model) "
+                    "mesh)")
+            devs = make_mesh()
+            n_sp = len(devs)
+        else:
+            devs = (make_mesh(devices=list(data_parallel))
+                    if isinstance(data_parallel, (list, tuple)) else make_mesh())
+            n_sp = int(spatial_shard)
+        if n_sp < 2 or len(devs) % n_sp:
+            raise ValueError(f"spatial_shard={n_sp} must be >=2 and divide the device count "
+                             f"({len(devs)})")
+        grid = make_2d_mesh(len(devs) // n_sp if data_parallel else 1, n_sp, devs)
+    elif not data_parallel:
         return None
-    mesh = make_mesh() if data_parallel is True else make_mesh(devices=list(data_parallel))
-    if device is not None and torch.device(device) not in (mesh[0], torch.device(mesh[0].type)):
-        raise ValueError(f"device {device} is not the first serving device {mesh[0]} "
+    else:
+        grid = [[d] for d in (make_mesh() if data_parallel is True
+                              else make_mesh(devices=list(data_parallel)))]
+    first = grid[0][0]
+    if device is not None and torch.device(device) not in (first, torch.device(first.type)):
+        raise ValueError(f"device {device} is not the first serving device {first} "
                          "(data_parallel=['cpu', 'cpu'] serves two replicas on the CPU)")
-    return mesh
+    return grid
 
 
 def _variables(path: str) -> dict:

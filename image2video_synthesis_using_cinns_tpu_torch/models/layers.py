@@ -50,7 +50,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import spectral as sn
-from ..parallel import distributed
+from ..parallel import distributed, spatial
 
 
 def _uniform_(t: torch.Tensor, fan_in: int) -> None:
@@ -165,7 +165,8 @@ class GroupNorm(nn.Module):
 
     Statistics and the affine step are taken in float32 (float64 input stays
     float64), and the result is cast back to the input's dtype, as the JAX
-    layer does.
+    layer does. A width-sharded input (``parallel/spatial.py``) takes its
+    statistics over every shard.
     """
 
     def __init__(self, num_features: int, num_groups: int = 16, affine: bool = True,
@@ -182,7 +183,9 @@ class GroupNorm(nn.Module):
             self.register_parameter("weight", None)
             self.register_parameter("bias", None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
+        if isinstance(x, spatial.WidthShards):  # statistics over every shard
+            return spatial.group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
         dt = _stats_dtype(x)
         w = None if self.weight is None else self.weight.to(dt)
         b = None if self.bias is None else self.bias.to(dt)

@@ -11,6 +11,11 @@ folded into its weights at load; a trainable one (``from_config(...,
 trainable=True)``, stage-1 training) keeps it on ``conv_0``, ``conv_1`` and
 ``conv_s`` as trainable spectral layers. The Spade and ADAIN layers have
 none, as in the JAX package.
+
+Given ``peers`` (its copies on a data row's model devices), the decoder runs
+width-sharded from the JAX package's anchors on (``parallel/spatial.py``):
+each block's 3x3x3 convolutions take a one-column halo, its norms reduce
+their statistics over every shard.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from ...ops.resize import upsample_nearest
+from ...parallel import spatial
 from ..layers import SNConv, SNDense, leaky_relu
 from .normalization import ADAIN, Norm3D, Spade
 
@@ -43,11 +49,22 @@ class GeneratorBlock(nn.Module):
         self.norm_1 = ADAIN(n_middle, z_dim)
         self.conv_1 = SNConv(n_middle, n_out, (3, 3, 3), padding=1, spectral=spectral)
 
-    def forward(self, x: torch.Tensor, motion: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
-        x_s = self.conv_s(self.norm_s(x)) if self.learned_shortcut else x
-        dx = self.conv_0(leaky_relu(self.norm_0(x, img), 0.2))
-        dx = self.conv_1(leaky_relu(self.norm_1(dx, motion), 0.2))
-        return x_s + dx
+    def forward(self, x, motion: torch.Tensor, img: torch.Tensor,
+                peers: list[GeneratorBlock] | None = None):
+        """``x`` whole, or width-sharded with ``peers`` this block's copies on
+        the shards' devices, in column order (``parallel/spatial.py``)."""
+        def conv(name: str, t):
+            if isinstance(t, spatial.WidthShards):
+                return spatial.conv(t, [getattr(p, name) for p in peers])
+            return getattr(self, name)(t)
+
+        def act(t):
+            return spatial.each(leaky_relu, t, 0.2)
+
+        x_s = conv("conv_s", self.norm_s(x)) if self.learned_shortcut else x
+        dx = conv("conv_0", act(self.norm_0(x, img)))
+        dx = conv("conv_1", act(self.norm_1(dx, motion)))
+        return spatial.each(torch.add, x_s, dx)
 
 
 class Generator(nn.Module):
@@ -86,15 +103,35 @@ class Generator(nn.Module):
             t *= f
         return t
 
-    def forward(self, img: torch.Tensor, motion: torch.Tensor) -> torch.Tensor:
-        """img: (B, 3, H, W) in [-1, 1]; motion: (B, z) -> video (B, 3, T, H, W)."""
+    def forward(self, img: torch.Tensor, motion: torch.Tensor,
+                peers: list[Generator] | None = None):
+        """img: (B, 3, H, W) in [-1, 1]; motion: (B, z) -> video (B, 3, T, H, W).
+
+        ``peers``: this decoder's copies on a data row's model devices, in
+        column order, the first on img's device (``Model(spatial_shard=)``).
+        From the first anchor whose width divides their count the width is
+        split over them (``spatial.constrain_spatial``), and the video comes
+        back width-sharded (``spatial.gather`` joins it)."""
+        if peers is None:
+            anchor, row = (lambda t: t), (lambda name: None)
+        else:
+            devices = [p.fc.weight.device for p in peers]
+            anchor = lambda t: spatial.constrain_spatial(t, devices)  # noqa: E731
+            row = lambda name: [getattr(p, name) for p in peers]  # noqa: E731
+
+        def up(t, factors):
+            return spatial.each(upsample_nearest, t, factors)
+
         x = self.fc(motion).reshape(img.shape[0], 16 * self.nf, 1, 4, 4)
-        x = self.head_0(x, motion, img)
-        x = self.g_0(upsample_nearest(x, (2, 2, 2)), motion, img)
-        x = self.g_1(upsample_nearest(x, (2, 2, 2)), motion, img)
-        x = self.g_2(upsample_nearest(x, (2, 2, 2)), motion, img)
+        x = self.head_0(x, motion, img)  # width 4: whole, as in JAX
+        x = self.g_0(anchor(up(x, (2, 2, 2))), motion, img, row("g_0"))
+        x = self.g_1(anchor(up(x, (2, 2, 2))), motion, img, row("g_1"))
+        x = self.g_2(anchor(up(x, (2, 2, 2))), motion, img, row("g_2"))
         ft, fs = self.upsample_t[0], self.upsample_s[0]
-        x = self.g_3(upsample_nearest(x, (ft, fs, fs)), motion, img)
+        x = self.g_3(anchor(up(x, (ft, fs, fs))), motion, img, row("g_3"))
         ft, fs = self.upsample_t[1], self.upsample_s[1]
-        x = self.g_4(upsample_nearest(x, (ft, fs, fs)), motion, img)
-        return torch.tanh(self.conv_img(leaky_relu(x, 0.2)))
+        x = self.g_4(anchor(up(x, (ft, fs, fs))), motion, img, row("g_4"))
+        x = spatial.each(leaky_relu, anchor(x), 0.2)
+        x = spatial.conv(x, row("conv_img")) if isinstance(x, spatial.WidthShards) else \
+            self.conv_img(x)
+        return spatial.each(torch.tanh, x)

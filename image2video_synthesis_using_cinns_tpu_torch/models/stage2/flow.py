@@ -4,6 +4,8 @@ A stack of ``n_flows`` blocks, each ActNorm -> InvLeakyReLU(0.9) -> double
 affine coupling -> fixed channel shuffle, conditioned on an embedding fed
 to every block. ``flow_forward`` returns the exact log-determinant and
 ``flow_reverse`` is the exact inverse; both are the plain float32 path.
+Given blocks sharded over a mesh (``parallel/tp.py``), both run the
+tensor-parallel coupling MLPs.
 
 Block parameters are stacked on a leading block axis, as in the JAX package.
 A coupling MLP layer keeps torch's (out, in) weight layout: its weight is
@@ -28,7 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.cuda import flow_kernel
-from ...parallel import distributed
+from ...parallel import distributed, tp
 
 LRELU_SLOPE = flow_kernel.LRELU_SLOPE
 INV_LRELU_ALPHA = flow_kernel.INV_LRELU_ALPHA
@@ -47,11 +49,17 @@ def control_mask(n_flows: int, control: bool) -> torch.Tensor:
 # functional forward / reverse. ``blocks`` is the dict of ConditionalFlow.blocks_dict()
 # --------------------------------------------------------------------------
 
+def _leaky(h: torch.Tensor) -> torch.Tensor:
+    return torch.where(h >= 0, h, LRELU_SLOPE * h)
+
+
 def _mlp(layers, i: int, h: torch.Tensor) -> torch.Tensor:
+    if isinstance(layers[0][0], tp.Split):  # blocks sharded over a mesh (parallel/tp.py)
+        return tp.mlp(layers, i, h, _leaky)
     for li, (w, b) in enumerate(layers):
         h = F.linear(h, w[i], b[i])
         if li < len(layers) - 1:
-            h = torch.where(h >= 0, h, LRELU_SLOPE * h)
+            h = _leaky(h)
     return h
 
 

@@ -11,6 +11,12 @@ batch divides the devices, as the JAX package pads. An explicit device list
 stands in for XLA's forced host device count: ``["cpu", "cpu"]`` serves two
 replicas on the CPU, ``["cuda:0", "cuda:0"]`` two on one card.
 
+``make_2d_mesh`` is the 2-D ``data x model`` grid that tensor parallelism
+(``parallel/tp.py``) and the width-sharded decoder (``parallel/spatial.py``,
+``Model(spatial_shard=)``) run on: a list of rows, one per ``data`` index,
+each holding its ``model`` devices, the row-major reshape of a device list,
+as JAX reshapes ``jax.devices()``.
+
 Multi-process training is ``parallel/distributed.py``.
 """
 
@@ -41,6 +47,17 @@ def make_mesh(n_devices: int | None = None,
     if not devices:
         raise ValueError("the mesh needs at least one device")
     return devices
+
+
+def make_2d_mesh(n_data: int, n_model: int,
+                 devices: Sequence[str | torch.device] | None = None) -> list[list[torch.device]]:
+    """The ``(n_data, n_model)`` grid of the first ``n_data * n_model`` of
+    ``devices`` (default every visible card), row-major: row ``r`` holds
+    devices ``[r n_model, (r + 1) n_model)``."""
+    if n_data < 1 or n_model < 1:
+        raise ValueError(f"a ({n_data}, {n_model}) mesh needs at least one device on each axis")
+    devs = make_mesh(n_data * n_model, devices)
+    return [devs[r * n_model:(r + 1) * n_model] for r in range(n_data)]
 
 
 def _map(fn, tree):

@@ -5,6 +5,8 @@
 one). ``build_model`` makes a sampling ``Model`` from a preset with random
 torch weights drawn from a seed, with no checkpoint directory and no YAML
 reader: the configs are built in memory, with the keys of the saved ones.
+``dryrun_multichip`` is the JAX system's multi-device dry run on a data x
+model grid of devices.
 
 ``make_reference_model_dir`` writes a chained stage-1/AE/stage-2 directory
 whose checkpoints are ``.pth`` files in the reference framework's key
@@ -95,12 +97,175 @@ def configs(preset: str, control: bool = False) -> tuple[Config, Config, Config]
 def build_model(preset: str = "bair", vid_length: int = 16, seed: int = 0,
                 use_kernel: bool = True, compute_dtype: str = "float32",
                 control: bool = False, transfer: bool = False, device=None,
-                data_parallel: bool | list = False) -> Model:
+                data_parallel: bool | list = False,
+                spatial_shard: bool | int = False) -> Model:
     """A ``Model`` of ``preset`` with random weights drawn from ``seed``."""
     stage2, stage1, ae = configs(preset, control)
     return Model.from_configs(stage2, stage1, ae, vid_length, transfer=transfer, seed=seed,
                               use_kernel=use_kernel, compute_dtype=compute_dtype, device=device,
-                              data_parallel=data_parallel)
+                              data_parallel=data_parallel, spatial_shard=spatial_shard)
+
+
+def dryrun_multichip(devices, preset: str = "tiny", seed: int = 0) -> dict:
+    """The JAX system's ``dryrun_multichip`` (``__graft_entry__.py:92-372``)
+    over ``devices`` (e.g. ``["cpu"] * 8`` or ``["cuda:0"] * 4``), with
+    random weights of ``preset`` drawn from ``seed``. The devices form a 2-D
+    data x model grid, 2 on ``model`` when there are 4 or more and their
+    count is even, else 1. Raises where a check fails:
+
+    * one stage-2 training step (``train.stage2.train_step``) of the
+      tensor-parallel flow (``parallel/tp.py``) at 2 clips a device, its
+      metrics finite;
+    * the eval of a batch that does not divide the data rows, padded and its
+      pad dropped, equal to the gathered flow's eval of the true batch on one
+      device, to 1e-4 + 1e-4 |a|;
+    * the cached-posterior loss equal to the uncached loss, to 1e-5 + 1e-5
+      |a|, and one cached step, its metrics finite;
+    * data-parallel sampling (``Model(data_parallel=...)`` over the rows'
+      first devices) from the trained flow, gathered and packed, through
+      ``flow_reverse_fused``: a finite video;
+    * the width-sharded decode of one video over the data axis
+      (``parallel/spatial.py``) and, with a model axis, the data x spatial
+      decode of the batch, each within 2e-3 of the whole decode.
+
+    Returns the metrics and the measured gaps."""
+    import copy
+
+    from .losses.flow_loss import flow_loss
+    from .models.stage1.decoder import Generator
+    from .models.stage1.resnet3d import Encoder
+    from .models.stage2.inn import SupervisedTransformer
+    from .parallel import spatial
+    from .parallel.mesh import make_2d_mesh, make_mesh, pad_to_multiple, replicate
+    from .parallel.tp import TensorParallelFlow, batch_sharded
+    from .train import stage2
+    from .train.optim import adam_torch
+
+    devs = make_mesh(devices=devices)
+    n = len(devs)
+    n_model = 2 if n >= 4 and n % 2 == 0 else 1
+    mesh = make_2d_mesh(n // n_model, n_model, devs)
+    first = devs[0]
+    s2, s1, ae = configs(preset)
+    p = PRESETS[preset]
+    img, seq_len, z_dim = p["img_size"], p["seq_length"], p["z_dim"]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        encoder = Encoder.from_config(s1.Encoder)
+        network = SupervisedTransformer.from_configs(s2, s1.Decoder, ae)
+        decoder = Generator.from_config(s1.Decoder)
+    encoder = encoder.to(first).eval().requires_grad_(False)
+    network = network.to(first).eval()
+    network.embedder.requires_grad_(False)
+    decoder = decoder.to(first).eval()
+    tp_net = copy.deepcopy(network)
+    tp_net.flow = TensorParallelFlow(tp_net.flow, mesh)
+
+    def adam(net):
+        return adam_torch(list(net.flow.parameters()), 1e-4, betas=(0.9, 0.99), amsgrad=True)
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed + 2)
+
+    def clips(b):
+        x = rng.uniform(-1, 1, (b, seq_len, img, img, 3)).astype(np.float32)
+        return torch.from_numpy(x).to(first)
+
+    def normal(b):
+        return torch.randn((b, z_dim), generator=gen).to(first)
+
+    def finite(label, aux):
+        bad = {k: float(v) for k, v in aux.items() if not torch.isfinite(v)}
+        if bad:
+            raise AssertionError(f"{label}: non-finite metrics {bad}")
+        return {k: float(v) for k, v in aux.items()}
+
+    def gap(label, want, got, tol):
+        g = {k: abs(float(want[k]) - float(got[k])) / (tol + tol * abs(float(want[k])))
+             for k in want}
+        if max(g.values()) > 1.0:
+            raise AssertionError(f"{label}: {dict(want)} against {dict(got)}")
+        return max(g.values())
+
+    b = 2 * n
+    seq, eps, ref = clips(b), normal(b), normal(b)
+    cond = stage2.conditioning(seq, None)
+    metrics = finite("tensor-parallel step", stage2.train_step(
+        tp_net, adam(tp_net), encoder, seq, cond, eps, ref))
+
+    # a batch that does not divide the rows: padded, the pad dropped
+    true_b = n - 1 if n > 1 else 1
+    seq_t, eps_t, ref_t = clips(true_b), normal(true_b), normal(true_b)
+    whole = tp_net.flow.gather_into(copy.deepcopy(network.flow))
+    with torch.no_grad():
+        want = flow_loss(*whole.plain(stage2.posterior(encoder, seq_t, eps_t),
+                                      network.embed(stage2.conditioning(seq_t, None))),
+                         noise=ref_t)[1]
+        (seq_p, eps_p), _ = pad_to_multiple([seq_t, eps_t], len(mesh))
+        g, ld = tp_net.flow.plain(stage2.posterior(encoder, seq_p, eps_p),
+                                  network.embed(stage2.conditioning(seq_p, None)))
+        got = flow_loss(g[:true_b], ld[:true_b], noise=ref_t)[1]
+    padded_gap = gap("padded data-parallel eval against the true batch", want, got, 1e-4)
+
+    # the cached-posterior loss: moments of the same rows give the same loss
+    with torch.no_grad():
+        _, mu, logvar = encoder(seq[:, 1:].permute(0, 4, 1, 2, 3), noise=eps)
+        moments = torch.stack([mu, logvar], dim=1)
+        wids = torch.arange(b, device=first)
+        emb = network.embed(cond)
+        cached = flow_loss(*tp_net.flow.plain(stage2.cached_posterior(moments, wids, eps), emb),
+                           noise=ref)[1]
+        uncached = flow_loss(*tp_net.flow.plain(stage2.posterior(encoder, seq, eps), emb),
+                             noise=ref)[1]
+    cached_gap = gap("cached-posterior loss against the uncached loss", uncached, cached, 1e-5)
+    fresh = copy.deepcopy(tp_net)
+    cached_metrics = finite("cached step", stage2.cached_train_step(
+        fresh, adam(fresh), moments, wids, cond, eps, ref))
+    del fresh
+
+    # data-parallel sampling from the trained flow, gathered and packed
+    serving = copy.deepcopy(network)
+    tp_net.flow.gather_into(serving.flow)
+    model = Model.from_configs(s2, s1, ae, decoder.base_frames, seed=seed,
+                               state_dicts={"decoder": decoder.state_dict(),
+                                            "flow": serving.state_dict()},
+                               data_parallel=[row[0] for row in mesh])
+    x0 = torch.from_numpy(rng.uniform(-1, 1, (b, 3, img, img)).astype(np.float32)).to(first)
+    vid, _ = model.sample(x0, residual=normal(b))
+    if not bool(torch.isfinite(vid).all()):
+        raise AssertionError("non-finite sampled video")
+    sample_shape = tuple(vid.shape)
+    del model, serving
+
+    # the width-sharded decode of one video over the data axis, as JAX shards it
+    row = spatial.spatial_sharding(mesh, "data")[0]
+    z1 = normal(1)
+    with torch.no_grad():
+        want1 = decoder(x0[:1], z1)
+        got1 = spatial.gather(decoder(x0[:1], z1, [decoder] + replicate(row[1:], decoder)))
+    spatial_err = float((got1 - want1).abs().max())
+    if spatial_err > 2e-3:
+        raise AssertionError(f"width-sharded decode {spatial_err:.3e} from the whole decode")
+
+    dp_spatial_err = None
+    if n_model > 1:  # rows on 'data', width on 'model'
+        zb = normal(b)
+        with torch.no_grad():
+            want_b = decoder(x0, zb)
+            outs = []
+            for grp, part in zip(spatial.spatial_sharding(mesh, "model", batch_axis="data"),
+                                 batch_sharded(mesh, {"x0": x0, "z": zb})):
+                peers = replicate(grp, decoder)
+                outs.append(spatial.gather(peers[0](part["x0"], part["z"], peers)).to(first))
+            got_b = torch.cat(outs)
+        dp_spatial_err = float((got_b - want_b).abs().max())
+        if dp_spatial_err > 2e-3:
+            raise AssertionError(f"data x spatial decode {dp_spatial_err:.3e} from the whole "
+                                 "decode")
+    return {"mesh": (len(mesh), n_model), "metrics": metrics, "padded_eval_gap": padded_gap,
+            "cached_gap": cached_gap, "cached_metrics": cached_metrics,
+            "sample_shape": sample_shape, "spatial_err": spatial_err,
+            "dp_spatial_err": dp_spatial_err}
 
 
 @contextlib.contextmanager

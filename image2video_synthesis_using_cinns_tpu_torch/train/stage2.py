@@ -218,6 +218,9 @@ def cached_train_step(network: SupervisedTransformer, optimizer, moments: torch.
 
 
 def _flow_step(network: SupervisedTransformer, optimizer, post, cond, ref) -> dict:
+    """The embedding, the flow by autograd, the loss and ``optimizer``'s step.
+    ``network.flow`` may be a ``parallel.tp.TensorParallelFlow``: its master
+    shards are then the optimizer's parameters."""
     with record_function("stage2/embedder"):
         emb = network.embed(cond)
     with record_function("stage2/flow"):

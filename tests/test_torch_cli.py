@@ -3,13 +3,16 @@
 both CLIs driven in-process with ``-device cpu`` on the tiny preset's
 checkpoint and synthetic frames, as ``tests/test_generate_clis.py`` drives
 the root CLIs; the port's image loader against the root CLI's cv2 loader
-(1e-5: both are bilinear without antialiasing, in fp32); the multi-device
-flags raise; the GIF and MJPEG helpers against the JAX package's copies.
+(1e-5: both are bilinear without antialiasing, in fp32); ``-spatial_shard``
+alone and beside ``-data_parallel`` against one device and, for
+``generate_samples``, against the root CLI's; the GIF and MJPEG helpers
+against the JAX package's copies.
 """
 
 import argparse
 import os
 import random
+import sys
 
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from image2video_synthesis_using_cinns_tpu.utils import video as jvideo
 from image2video_synthesis_using_cinns_tpu_torch.cli import generate_samples, generate_transfer
 from image2video_synthesis_using_cinns_tpu_torch.utils import seed as tseed
 from image2video_synthesis_using_cinns_tpu_torch.utils import video as tvideo
+from test_torch_port_eval import same_residuals  # noqa: F401
 from test_torch_port_stage1_step import two_threads  # noqa: F401
 from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
@@ -65,11 +69,61 @@ def test_generate_samples_cli(tmp_path, monkeypatch, ckpt):
 
 @pytest.mark.parametrize("flag", [["-spatial_shard", "2", "-data_parallel"], ["-spatial_shard", "2"]])
 @pytest.mark.parametrize("cli", [generate_samples, generate_transfer])
-def test_multi_device_flags_raise(cli, flag):
-    """The width-sharded decoder is not ported: alone or beside -data_parallel
-    (which serves: tests/test_torch_port_parallel.py)."""
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        cli.main(["-dataset", "landscape", "-ckpt_path", "unused/", "-device", "cpu"] + flag)
+def test_multi_device_flags_serve(cli, flag, tmp_path, monkeypatch, ckpt, request):
+    """``-spatial_shard 2``, alone (the first two of four CPU devices) or
+    beside ``-data_parallel`` (a 2 x 2 grid), writes the frames one device
+    writes, to one quantisation step; ``generate_samples -spatial_shard 2``
+    also those of the root CLI's on the eight JAX devices, the residuals
+    shared (``same_residuals``). The frames are those each CLI hands to
+    ``imageio.mimsave``: the GIF's palette can map frames one step apart to
+    colours far apart."""
+    import imageio
+
+    from image2video_synthesis_using_cinns_tpu_torch.models import facade
+    from image2video_synthesis_using_cinns_tpu_torch.parallel.mesh import make_mesh
+
+    p = PRESETS["tiny"]
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(facade, "make_mesh", lambda: make_mesh(devices=["cpu"] * 4))
+    written, mimsave = {}, imageio.mimsave
+
+    def record(path, frames, **kw):
+        written[os.path.normpath(path)] = np.asarray(frames, np.int16)
+        return mimsave(path, frames, **kw)
+
+    monkeypatch.setattr(imageio, "mimsave", record)
+    if cli is generate_samples:
+        _write_frames(str(tmp_path / "assets" / "GT_samples" / "bair"), 3, p["img_size"])
+        args = ["-dataset", "bair", "-ckpt_path", ckpt, "-seq_length", "8", "-bs", "3"]
+        outs = ["bair/results.gif"]
+    else:
+        for k, name in enumerate(("vid0", "vid1")):
+            _write_frames(str(tmp_path / "assets" / "GT_samples" / "landscape" / "transfer" / name),
+                          p["seq_length"], 40, seed=k)
+        args = ["-dataset", "landscape", "-ckpt_path", ckpt, "-seq_length", str(p["seq_length"])]
+        outs = ["landscape/transfer_0.gif", "landscape/transfer_1.gif"]
+
+    def gifs():
+        return [written.pop(os.path.normpath(os.path.join("assets", "results", o))) for o in outs]
+
+    def port(extra):
+        cli.main(args + ["-device", "cpu"] + extra)
+        return gifs()
+
+    def close(got, want):
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            assert np.abs(g - w).max() <= 1  # one quantisation step of the frames
+
+    close(port(flag), port([]))
+    if cli is generate_samples and flag == ["-spatial_shard", "2"]:
+        import generate_samples as root_cli
+
+        request.getfixturevalue("same_residuals")
+        monkeypatch.setattr(sys, "argv", ["generate_samples.py"] + args + flag)
+        root_cli.main()
+        root = gifs()  # read before the port's run writes the same files
+        close(port(flag), root)
 
 
 def test_device_flags():

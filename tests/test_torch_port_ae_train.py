@@ -32,7 +32,9 @@ port's ``cli/visualize_endpoint.py``.
 * ``visualize_endpoint -device cpu`` against the root script on the JAX
   package's tiny control checkpoint and a synthetic BAIR endpoint test
   split, the residuals of both pinned to one numpy stream: its GIFs and
-  PNGs, and the stacked videos of both within ``ENDPOINT_TOL``.
+  PNGs, and the stacked videos of both within ``ENDPOINT_TOL``; with
+  ``-data_parallel`` on three CPU replicas and ``-spatial_shard 2`` on two
+  CPU devices, the one-device videos within the JAX package's parallel bound.
 """
 
 import csv
@@ -355,7 +357,11 @@ def test_visualize_endpoint_cli(tmp_path, monkeypatch):
     visualize_endpoint.main(args + ["-device", "cpu", "-data_parallel"])
     np.testing.assert_allclose(videos["v"], v, rtol=1e-3, atol=1e-4)
     assert videos["v"] is not v
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        visualize_endpoint.main(args + ["-device", "cpu", "-spatial_shard", "2"])
+    # the decoder's width split over two CPU devices serves the same videos,
+    # to the JAX package's spatial bound (tests/test_parallel.py)
+    monkeypatch.setattr(facade, "make_mesh", lambda: make_mesh(devices=["cpu"] * 2))
+    pin_residuals(monkeypatch, Model)
+    visualize_endpoint.main(args + ["-device", "cpu", "-spatial_shard", "2"])
+    np.testing.assert_allclose(videos["v"], v, rtol=1e-3, atol=1e-4)
     with pytest.raises(ValueError, match="BAIR only"):
         visualize_endpoint.main(["-dataset", "landscape", "-device", "cpu"])

@@ -256,12 +256,31 @@ def test_eval_diversity_cli_matches_jax(tiny_dirs, stand_ins, same_residuals, mo
 
 @pytest.mark.parametrize("flag", [["-spatial_shard", "2", "-data_parallel"], ["-spatial_shard", "2"]])
 @pytest.mark.parametrize("cli", [eval_synthesis_quality, eval_diversity])
-def test_multi_device_flags_raise(cli, flag):
-    """The width-sharded decoder is not ported: alone or beside -data_parallel
-    (which serves: tests/test_torch_port_parallel.py)."""
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        cli.main(["-dataset", "bair", "-data_path", "unused/", "-ckpt_path", "unused/",
-                  "-device", "cpu"] + flag)
+def test_multi_device_flags_serve(cli, flag, tiny_dirs, stand_ins, monkeypatch, capsys):
+    """``-spatial_shard 2``, alone (the first two of four CPU devices) or
+    beside ``-data_parallel`` (a 2 x 2 grid), prints the scores one device
+    prints, to 1e-3."""
+    from image2video_synthesis_using_cinns_tpu_torch.models import facade
+    from image2video_synthesis_using_cinns_tpu_torch.parallel.mesh import make_mesh
+
+    ckpt, synth, div = tiny_dirs
+    monkeypatch.setattr(facade, "make_mesh", lambda: make_mesh(devices=["cpu"] * 4))
+    if cli is eval_diversity:  # the stand-in backbones: VGG16 is not on the decoder's path
+        data, prefix, field = div, "Diversity score of", 3
+        flags = ["-bs", "3", "-n_realiz", "2", "-DTI3D", "1"]
+    else:
+        data, prefix, field = synth, "score of", -1
+        flags = ["-bs", "6", "-FID", "1", "-LPIPS", "1", "-FVD", "1", "-DTFVD", "1"]
+    args = ["-dataset", "bair", "-data_path", data, "-ckpt_path", ckpt, "-seq_length", "4",
+            "-device", "cpu", *flags]
+    cli.main(args)
+    want = _lines(capsys.readouterr().out, prefix)
+    cli.main(args + flag)
+    got = _lines(capsys.readouterr().out, prefix)
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        x, y = float(a.split(" ")[field]), float(b.split(" ")[field])
+        assert np.isfinite(x) and abs(x - y) <= 1e-3 * abs(y), (a, b)
 
 
 @pytest.mark.parametrize("cli", [eval_synthesis_quality, eval_diversity])

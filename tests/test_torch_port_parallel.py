@@ -15,8 +15,9 @@ training (``parallel/``), at the tiny preset, beside the JAX package's.
 * ``-data_parallel -device cpu`` (``make_mesh`` giving CPU replicas, as
   the cards would be) serves in the sampling CLIs as they serve on one
   device, and in the eval CLIs as the root CLIs' ``-data_parallel`` do (the
-  scores to 1e-3); ``-spatial_shard`` and ``Model(spatial_shard=)``
-  raise, naming slice 11.
+  scores to 1e-3); ``Model(spatial_shard=)`` alone and beside
+  ``data_parallel`` serves one device's videos (``test_torch_port_spatial.py``
+  holds it against the JAX package).
 * ``maybe_initialize``: nothing to join without a config, torchrun's
   environment for ``True`` (raises without it), a one-rank gloo group from a
   mapping, joined once however often it is called; the collectives are the
@@ -182,11 +183,18 @@ def test_dp_model_with_the_kernel_wrappers(model_dir, inputs):
         Model(model_dir, vid_length=8, data_parallel=["cpu", "cpu"], device="cuda")
 
 
-def test_spatial_shard_and_cardless_data_parallel_raise(model_dir, monkeypatch):
-    for kw in (dict(spatial_shard=2), dict(spatial_shard=2, data_parallel=["cpu", "cpu"])):
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            Model(model_dir, vid_length=8, device="cpu", **kw)
+def test_spatial_shard_serves_and_cardless_data_parallel_raises(model_dir, inputs, monkeypatch):
+    x0, residual, _ = inputs
+    one = Model(model_dir, vid_length=8, device="cpu")
+    want = one.sample(x0[:3], residual=residual[:3])[0].numpy()
+    for kw in (dict(spatial_shard=2, data_parallel=["cpu"] * 2),
+               dict(spatial_shard=2, data_parallel=["cpu"] * 4)):
+        m = Model(model_dir, vid_length=8, device="cpu", **kw)
+        np.testing.assert_allclose(m.sample(x0[:3], residual=residual[:3])[0].numpy(), want,
+                                   **DP_TOL)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(model_dir, vid_length=8, spatial_shard=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Model(model_dir, vid_length=8, data_parallel=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -202,14 +210,17 @@ def test_serving_flags(model_dir):
     def options(*a):
         return generate_samples.serving_options(parser.parse_args(["-dataset", "x", *a]))
 
-    assert options("-device", "cpu") == {"device": "cpu", "data_parallel": False}
+    assert options("-device", "cpu") == {"device": "cpu", "data_parallel": False,
+                                         "spatial_shard": False}
     assert options("-device", "cpu", "-data_parallel") == {"device": "cpu",
-                                                            "data_parallel": True}
-    assert options("-gpu", "1", "-data_parallel") == {"device": "cuda:1", "data_parallel": True}
+                                                            "data_parallel": True,
+                                                            "spatial_shard": False}
+    assert options("-gpu", "1", "-data_parallel") == {"device": "cuda:1", "data_parallel": True,
+                                                      "spatial_shard": False}
     with pytest.raises(ValueError, match="first serving device"):  # the mesh starts at cuda:0
         Model(model_dir, vid_length=8, data_parallel=["cuda:0", "cuda:1"], device="cuda:1")
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        options("-device", "cpu", "-spatial_shard", "2")
+    assert options("-device", "cpu", "-spatial_shard", "2", "-data_parallel") == {
+        "device": "cpu", "data_parallel": True, "spatial_shard": 2}
 
 
 def cpu_replicas(monkeypatch, n: int) -> None:
