@@ -179,6 +179,20 @@ Phases (any failure raises and the script exits non-zero):
    gradients against each tensor's largest, weights after the step:
    ``PAR_TOL``). Then each setup's latency beside one device's at the same
    batch, and the fp32 step at bs 50 beside the one-device step.
+   4l. The empty-disk pipeline (``cli/pipeline_drive.run_pipeline``) at the
+   full BAIR preset with the drive's own defaults (3 steps, 6 clips a split,
+   bs 3) and 4c's random full-size backbones, in its own counted window:
+   synthetic BAIR data written as PNGs, stage-1 training, AE training, cINN
+   training on a config chained to the two directories just written, the
+   ``generate_samples`` CLI (a GIF) and the eval CLI (FID, LPIPS, DTFVD) on
+   the cINN's directory, and ``Model`` from it. Checks: each file a trainer
+   writes where the next consumer looks for it, the GIF; one forward chain
+   per validation batch of the cINN's run (2) and one reverse chain per
+   batch of the generate CLI (2) and the eval CLI (2) and for the drive's
+   ``Model`` (1), each one device kernel, counted beforehand from the
+   drive's batches; the scores finite; the flow ``Model`` serves from the
+   directory the trained one bitwise, its video finite in [-1, 1], z
+   against the plain chain. Prints each stage's wall time.
 5. Timings: each kernel's median ms beside its plain version and its bound;
    the reverse chain at B = 1, 6 and 16; where a chain's time goes, from the
    timeline build (per layer and pass, and the kernel's own span), and a
@@ -205,22 +219,29 @@ Phases (any failure raises and the script exits non-zero):
    (its cache built in shards), stage 1 at bs 10 and the AE at bs 30 with
    the discriminators open, at their configs' lr, one epoch (2 steps) each,
    and stage 1 (bs 4) and the AE (bs 6) again in fp64
-   (``testing.float64_training``, 2 steps); first in this process in a
-   one-rank NCCL group, then in two ranks of a gloo group that this script
-   spawns (``--par-rank``; ``Training.distributed`` mappings) on the one
-   card; checkpoint writes are recorded, not written. Checks: the ranks log
-   the same losses and end with the same weights; stage 1's fp64 run, one
-   fp64 step of stage 2 (loss terms, averaged gradients, the flow after it)
-   and one fp64 step of the AE at lr 0 (metrics, averaged gradients, running
-   statistics, ActNorm and spectral state) equal the one process's
-   (``PAR_TOL``; gradients against each tensor's largest); the sharded cache
-   equals the one-process cache bitwise; rank 0 alone writes; both groups
-   all-reduce on the card. The fp32 runs' and the AE's fp64 run's
-   differences and each process's step and job times are printed; for fp32
-   stage 2 and the AE's fp64 run, the element with the largest two-rank gap
-   and both runs' gradients there at each step, on their own batches.
-8. A ``{"kernels": [...]}`` line (launches summed over the fourteen counted
-   windows, 4k's the fourteenth), then the last line ``{"ok": true, "device":
+   (``testing.float64_training``, 2 steps); in two ranks of a gloo group
+   that this script spawns (``--par-rank``; ``Training.distributed``
+   mappings) on the one card and, at the same time, in this process in a
+   one-rank NCCL group; checkpoint writes are recorded, not written.
+   Checks: the ranks log the same losses and end with the same weights;
+   the fp64 runs of stage 1 and of the AE (logs, every trained weight and
+   buffer), one fp64 step of stage 2 (loss terms, averaged gradients, the
+   flow after it) and one fp64 step of the AE at lr 0 (metrics, averaged
+   gradients, running statistics, ActNorm and spectral state) equal the one
+   process's (``PAR_TOL``; gradients against each tensor's largest); the
+   sharded cache equals the one-process cache bitwise; rank 0 alone writes;
+   both groups all-reduce on the card; the train augment gives a rank's
+   rows the bits of the same rows in the whole batch (``augment_rows_check``,
+   F12; with an fp32 contrast sum, reported). The fp32 runs' differences and each
+   process's step and job times are printed; for fp32 stage 2 and the AE's
+   fp64 run, the element with the largest two-rank gap and both runs'
+   gradients there at each step, on their own batches. To fit phase 4l's
+   time, this phase no longer runs the one process before the ranks, keeps
+   the one process's arrays in memory instead of a file, and compares on
+   the card; every check it made before stays, and the AE's whole fp64 run,
+   reported before, is held.
+8. A ``{"kernels": [...]}`` line (launches summed over the fifteen counted
+   windows, 4l's the fifteenth), then the last line ``{"ok": true, "device":
    {...}}``.
 
 Exits non-zero without a result when no CUDA device is visible, and when the
@@ -2713,17 +2734,20 @@ PAR_TIMEOUT = 900  # seconds for each spawned process
 # algorithms by batch (25 rows a rank against 50), and Adam's first steps
 # turn rounding on a near-zero gradient into a step of about lr either way
 # (run at the configs' lr, a stage-1 spectral vector ended 8.7% apart). So
-# stage 1 is held in fp64 (``testing.float64_training``, a whole run), stage
-# 2 by one step in fp64 (``par_step64``: its validation and prior FVD run the
-# fp32 chain kernels), and the AE by one step in fp64 at lr 0
-# (``par_ae_step64``): its whole fp64 run is reported, since from the random
-# discriminator's collapsed state (PERF.md) d_weight multiplies a generator
-# gradient that is nearly all cancellation, and Adam's first steps turn
-# even fp64 rounding there into steps of about lr either way. The averaged
-# gradients are held against each tensor's largest, as phases 4d-4f hold
-# the card's; the fp32 runs' differences are reported beside them
+# stage 1 and the AE are held in fp64 (``testing.float64_training``, a whole
+# run each), stage 2 by one step in fp64 (``par_step64``: its validation and
+# prior FVD run the fp32 chain kernels), and the AE also by one step in fp64
+# at lr 0 on a seeded batch (``par_ae_step64``). The AE's whole fp64 run
+# took another first step in two ranks while the train augment's contrast
+# summed each frame's mean in float: the card orders that sum by how many
+# frames the batch holds, so a rank's 3 frames differed in the last bits
+# from the same frames in the batch of 6, and the random networks amplify
+# that (ROADMAP F12; the mean is now summed exactly, ``data/augment.py``).
+# The averaged gradients are held against each tensor's largest, as phases
+# 4d-4f hold the card's; the fp32 runs' differences are reported beside them
 PAR_TOL = dict(rtol=1e-5, atol=1e-7)
 PAR_STEP64_SEED = 4242
+AUG_CHECK_BATCHES = 20  # seeded 6-clip batches whose rows are held against 3-clip halves
 ADAM_EPS = 1e-8  # every trainer's Adam (train/optim.py)
 
 def dp_close(key: str, got, want) -> None:
@@ -3109,6 +3133,99 @@ def phase_tp_spatial(card: str, one: dict, t_one):
     return launches, device_launches
 
 
+def phase_pipeline(card: str, tmp: Path, weights_root: str):
+    """The empty-disk pipeline drive (``cli/pipeline_drive.run_pipeline``)
+    at the full BAIR preset with the drive's own defaults (steps, clips a
+    split, batch) and phase 4c's random full-size backbones, in its own
+    counted window: stage 1, the AE, the cINN from the directories they
+    wrote, the generate and eval CLIs on the cINN's directory, ``Model``.
+    Checks: every artifact (the drive asserts each where its consumer looks,
+    and the GIF); one forward chain per validation batch of the cINN's run
+    and one reverse chain per batch of the generate CLI, per eval batch and
+    for the drive's ``Model``, each one device kernel, as counted beforehand
+    from the drive's batches; the eval CLI's scores finite; then, outside
+    the window, the flow that ``Model`` serves from the directory is the
+    trained one bitwise, its video finite in [-1, 1] and z the plain
+    chain's. Prints each stage's wall time."""
+    import inspect
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.cli import pipeline_drive
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
+    from image2video_synthesis_using_cinns_tpu_torch.testing import PRESETS
+    from image2video_synthesis_using_cinns_tpu_torch.train import stage2
+
+    defaults = {k: v.default for k, v in
+                inspect.signature(pipeline_drive.run_pipeline).parameters.items()}
+    n, bs, steps = defaults["n_videos"], defaults["bs"], defaults["steps"]
+    T = PRESETS[PRESET]["seq_length"] - 1  # the drive's video length
+    n_eval = math.ceil(n / bs)
+    want = {"flow_reverse_fused": math.ceil(min(pipeline_drive.GT_FRAMES, n) / bs) + n_eval + 1,
+            "flow_forward_fused": min(n_eval, 3)}  # validation stops after 3 under max_steps
+    root = tmp / "pipeline"
+    kept = {}
+    build = stage2.build_models
+
+    def keep(*a, **k):
+        kept["models"] = build(*a, **k)
+        return kept["models"]
+
+    stage2.build_models = keep
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = pipeline_drive.run_pipeline(str(root), preset=PRESET, device=DEVICE,
+                                          weights_root=weights_root)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        stage2.build_models = build
+    launches, device_launches = dict(fk.launches), dict(fk.device_launches)
+    log(f"  [{card}] run_pipeline {PRESET}, {steps} steps, {n} clips a split, bs {bs}: "
+        f"{wall:.2f} s; by stage (s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out["seconds"].items()))
+    log(f"  pipeline chain launches: {launches}; device kernels they launched: "
+        f"{device_launches}; expected {want}")
+    if launches != want:
+        raise AssertionError(f"pipeline: chain launches {launches}, expected {want}")
+    if device_launches != launches:
+        raise AssertionError("pipeline: a chain launched other than one device kernel")
+    log(f"  artifacts: stage 1 {Path(out['stage1']).name}, AE {Path(out['ae']).name}, cINN "
+        f"{Path(out['stage2']).name}, GIF {Path(out['gif']).stat().st_size} bytes, video "
+        f"{out['video_shape']}")
+    scores = out["eval"]
+    expected = {"FID", "LPIPS"} | ({"DTFVD"} if T >= 16 else set()) | (
+        {"FVD"} if n >= 16 else set())
+    if set(scores) != expected or not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"pipeline: eval CLI scores {scores}, expected finite {expected}")
+    log(f"  eval CLI scores (random backbones; FVD needs 16 clips): {scores}")
+
+    server = out["model"]  # the drive's Model(<the cINN's directory>/)
+    served = dict(server.flow.flow.named_parameters())
+    for name, p in kept["models"].network.flow.named_parameters():
+        if not torch.equal(served[name], p.to(served[name].device)):
+            raise AssertionError(f"pipeline: the served {name} is not the trained one")
+    log("  Model(<the cINN's directory>/): every flow weight equal to the trained one")
+    img, z = server.config_stage1.Data["img_size"], server.flow.flow.packed.C
+    gen = torch.Generator().manual_seed(9)
+    x0 = (torch.rand((BATCH, 3, img, img), generator=gen) * 2 - 1).to(DEVICE)
+    residual = torch.randn((BATCH, z), generator=gen).to(DEVICE)
+    with torch.no_grad():
+        video, z_served = server.sample(x0, residual=residual)
+        z_ref = fk.flow_reverse_fused_ref(server.flow.flow.packed, residual,
+                                          server.flow.embed([x0]))
+    check_video(f"pipeline: served video bs={BATCH}", video, (BATCH, T, 3, img, img))
+    check("pipeline: served z vs plain", z_served, z_ref, TOL["bf16"])
+    del server, out, kept, video
+    shutil.rmtree(root)  # about 7 GB of checkpoints, most of them stage 1's
+    return launches, device_launches
+
+
 def par_configs(tmp: Path) -> dict:
     """The configs of the multi-process jobs (no ``distributed`` yet): stage 2
     at bs 50 on phase 4d's splits, chained to 4e's stage-1 run and 4f's AE,
@@ -3166,7 +3283,7 @@ PAR_JOBS = (dict(tag="stage2", name="stage2", record=True),
                  training=dict(bs=4, bs_eval=4)),
             dict(tag="ae", name="ae"),
             dict(tag="ae_fp64", name="ae", fp64=True, max_steps=2, training=dict(bs=6),
-                 reported=True, record=True))
+                 record=True))
 
 
 def par_step64(models, network, tr: dict, seq_len: int) -> dict:
@@ -3260,19 +3377,21 @@ def par_ae_step64(models, tr: dict) -> dict:
     return out
 
 
-def par_job(job: dict, config: str, out: Path, save: bool, builds: dict) -> dict:
+def par_job(job: dict, config: str, out: Path, save: str | None, builds: dict) -> dict:
     """One trainer ``main`` on the card as ``job`` says (fp64 through
     ``testing.float64_training``, at most ``max_steps`` steps), its modules
     copied from this process's first build of them (``builds``, by
     trainer), its checkpoint writes recorded, not written: phases 4d-4f
     held the files to the JAX layout, and here only which rank writes
-    matters. The trained modules' weights and buffers (the posterior cache;
-    for stage 2 also ``par_step64``'s) are saved to ``<out>/<tag>.npz`` when
-    ``save``, and their digest returned beside the logged losses, each
-    step's time, the job's wall time and the files written. With
-    ``job["record"]`` and ``save``, every ``Adam`` step's gradients as it
-    applied them (averaged over the ranks; fp32 copies) go to
-    ``<out>/<tag>_grads.npz``, keyed ``<tensor>@<step>``."""
+    matters. Returns the trained modules' digest beside the logged losses,
+    each step's time, the job's wall time and the files written. Their
+    weights and buffers (the posterior cache; for stage 2 also
+    ``par_step64``'s) are saved to ``<out>/<tag>.npz`` where ``save`` is
+    ``"file"`` (a spawned rank 0) and returned as ``arrays`` where it is
+    ``"memory"`` (this process). With ``job["record"]`` and ``save``, every
+    ``Adam`` step's gradients as it applied them (averaged over the ranks;
+    fp32 copies), keyed ``<tensor>@<step>``, go beside them
+    (``<out>/<tag>_grads.npz``, or ``grads``)."""
     import contextlib
     import copy
     import hashlib
@@ -3394,14 +3513,17 @@ def par_job(job: dict, config: str, out: Path, save: bool, builds: dict) -> dict
     digest = hashlib.sha256()
     for k in sorted(arrays):
         digest.update(k.encode() + np.ascontiguousarray(arrays[k]).tobytes())
-    if save:
+    result = {}
+    if save == "file":
         np.savez(out / f"{tag}.npz", **arrays)
-    if grads:
-        np.savez(out / f"{tag}_grads.npz", **grads)
+        if grads:
+            np.savez(out / f"{tag}_grads.npz", **grads)
+    elif save == "memory":
+        result = {"arrays": arrays, "grads": grads}
     del kept, arrays, grads
     keys = ("train_metrics", "eval_metrics") if name == "stage1" else ("train_loss", "eval_loss")
     vals = [list(res[k].values()) if isinstance(res[k], dict) else list(res[k]) for k in keys]
-    return {"train": [float(v) for v in vals[0]], "eval": [float(v) for v in vals[1]],
+    return {**result, "train": [float(v) for v in vals[0]], "eval": [float(v) for v in vals[1]],
             "save_path": res["save_path"], "written": written, "checkpoints": ckpts,
             "step_s": step_s, "steps": res["global_step"], "digest": digest.hexdigest(),
             "wall_s": time.perf_counter() - t_job}
@@ -3419,21 +3541,29 @@ def par_run(spec: dict, rank: int) -> dict:
 
     from image2video_synthesis_using_cinns_tpu_torch.parallel import distributed
 
+    t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out, cwd = Path(spec["out"]), os.getcwd()
     os.chdir(spec["tmp"])  # the trainers read their weights under ./models/ (phase 4c's)
     try:
-        builds = {}
-        result = {job["tag"]: par_job(job, job["configs"][rank], out,
-                                      save=rank == 0 and spec["save"], builds=builds)
-                  for job in spec["jobs"]}
+        builds, result = {}, {}
+        for job in spec["jobs"]:
+            torch.cuda.reset_peak_memory_stats(DEVICE)
+            result[job["tag"]] = par_job(job, job["configs"][rank], out,
+                                         save=spec["save"] if rank == 0 else None, builds=builds)
+            result[job["tag"]]["peak_gib"] = torch.cuda.max_memory_allocated(DEVICE) / 2**30
+            # the job's models (often in reference cycles) and their cached blocks go back to
+            # the card: three processes share it in phase 7
+            gc.collect()
+            torch.cuda.empty_cache()
         del builds
         result["world"] = distributed.world()
         result["backend"] = dist.get_backend()
         t = torch.full((4,), float(rank + 1), device=DEVICE)
         dist.all_reduce(t)  # on the card
         result["all_reduce"] = t.tolist()
+        result["run_s"] = time.perf_counter() - t0
     finally:
         distributed.destroy()
         os.chdir(cwd)
@@ -3448,29 +3578,43 @@ def par_worker(spec_path: str, rank: int) -> int:
     return 0
 
 
-def par_spawn(spec: dict, n: int) -> list[dict]:
-    """``par_run`` in ``n`` processes of this script (``--par-rank``), each
-    with a time limit; a failed or hung process fails the phase."""
+def par_spawn(spec: dict, n: int) -> list[subprocess.Popen]:
+    """Start ``par_run`` in ``n`` processes of this script (``--par-rank``),
+    each writing its output to ``<out>/<tag>_rank<r>.log`` (a pipe nobody
+    reads while this process trains would stall them); ``par_collect``
+    waits for them."""
     out = Path(spec["out"])
     path = out / f"{spec['tag']}.json"
     path.write_text(json.dumps(spec))
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--par-rank",
-                               str(path), str(r)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(n)]
-    logs = []
+    procs = []
+    for r in range(n):
+        with open(out / f"{spec['tag']}_rank{r}.log", "w") as f:
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                           "--par-rank", str(path), str(r)],
+                                          stdout=f, stderr=subprocess.STDOUT))
+    return procs
+
+
+def par_collect(spec: dict, procs: list[subprocess.Popen]) -> list[dict]:
+    """The results of ``par_spawn``'s processes, each waited for within
+    ``PAR_TIMEOUT`` (from now); a failed or hung process fails the phase,
+    and every process is ended before this returns or raises."""
+    out = Path(spec["out"])
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=PAR_TIMEOUT)[0])
+            p.wait(timeout=PAR_TIMEOUT)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, text) in enumerate(zip(procs, logs)):
+    for r, p in enumerate(procs):
         if p.returncode != 0:
-            raise AssertionError(f"phase 4j: {spec['tag']} rank {r} failed (exit "
+            text = (out / f"{spec['tag']}_rank{r}.log").read_text()
+            raise AssertionError(f"phase 7: {spec['tag']} rank {r} failed (exit "
                                  f"{p.returncode}):\n" + text[-6000:])
-    return [json.loads((out / f"{spec['tag']}_rank{r}.json").read_text()) for r in range(n)]
+    return [json.loads((out / f"{spec['tag']}_rank{r}.json").read_text())
+            for r in range(len(procs))]
 
 
 def _free_port() -> int:
@@ -3481,11 +3625,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def par_gap_source(w2: dict, w1: dict, g2, g1) -> str:
+def par_gap_source(w2: dict, w1: dict, g2: dict, g1: dict) -> str:
     """The weight of a job's arrays (two ranks ``w2``, one process ``w1``)
     with the largest two-rank gap, and at that element each run's gradient
     at each of its steps, on its own batches, as Adam applied it (``g2``,
-    ``g1``: the runs' ``<tag>_grads.npz``): the two values, their gap as a
+    ``g1``: the runs' recorded gradients): the two values, their gap as a
     share of the larger, whether their signs agree, and the larger against
     the tensor's largest gradient and Adam's eps. Adam's first steps move a
     weight by about lr in the gradient's sign, so where the two runs'
@@ -3500,7 +3644,7 @@ def par_gap_source(w2: dict, w1: dict, g2, g1) -> str:
         initial=0)))
     d = np.abs(w2[k].astype(np.float64) - w1[k])
     idx = tuple(int(i) for i in np.unravel_index(int(np.argmax(d)), d.shape)) if d.ndim else ()
-    steps = sorted(int(s.rsplit("@", 1)[1]) for s in g1.files if s.rsplit("@", 1)[0] == k)
+    steps = sorted(int(s.rsplit("@", 1)[1]) for s in g1 if s.rsplit("@", 1)[0] == k)
     if not steps:
         return f"largest gap {float(d.max()):.3e} in {k}{list(idx)}: no recorded gradient"
     parts = []
@@ -3518,25 +3662,69 @@ def par_gap_source(w2: dict, w1: dict, g2, g1) -> str:
             "on its own batches, as Adam applied it: " + "; ".join(parts))
 
 
+def augment_rows_check(card: str) -> None:
+    """F12 on the card: a rank's augmented rows are the whole batch's rows.
+    For ``AUG_CHECK_BATCHES`` seeded batches of 6 clips (the AE's fp64 job's
+    global batch) with the AE config's colour ops, each 3-clip half,
+    augmented alone with its rows of the draws, must equal the same rows of
+    the whole batch bitwise. Beside it, reported, the same with the contrast
+    op's mean summed in fp32 (as before the repair), whose order the card
+    picks by the batch's frame count."""
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.data import augment
+
+    params, img = AE_DATA["Augmentation"], AE_DATA["img_size"]
+    exact = augment._frame_mean
+    differing = {}
+    for label, mean in (("exact", exact),
+                        ("fp32 sum", lambda g: g.mean(dim=(-3, -2, -1), keepdim=True))):
+        augment._frame_mean = mean
+        try:
+            bad = 0
+            for seed in range(AUG_CHECK_BATCHES):
+                gen = torch.Generator().manual_seed(seed)
+                raw = torch.randint(0, 256, (6, 1, img, img, 3), generator=gen,
+                                    dtype=torch.uint8).to(DEVICE)
+                draws = augment.draw_augment(6, params, False, gen)
+                whole = augment.apply_augment(raw, img, params, False, draws)
+                halves = torch.cat([augment.apply_augment(
+                    raw[rows], img, params, False, {k: v[rows] for k, v in draws.items()})
+                    for rows in (slice(0, 3), slice(3, 6))])
+                bad += int((whole != halves).flatten(1).any(1).sum())
+        finally:
+            augment._frame_mean = exact
+        differing[label] = bad
+    n = 6 * AUG_CHECK_BATCHES
+    log(f"  [{card}] train augment, rows of a 6-clip batch that differ from the same rows "
+        f"augmented in 3-clip halves: {differing['exact']} of {n} with the exact contrast mean; "
+        f"{differing['fp32 sum']} of {n} with an fp32 sum (reported: the fault F12 repaired)")
+    if differing["exact"]:
+        raise AssertionError("the train augment's rows depend on the batch they are in")
+
+
 def phase_parallel_train(card: str, tmp: Path):
-    """The trainers' mains (``PAR_JOBS``): each once in this process, in a
-    one-rank NCCL group, then in two spawned ranks of a gloo group
-    (``Training.distributed`` mappings that differ in ``process_id``) on the
-    one card. Checks: the ranks agree exactly; the fp64 runs and stage 2's
-    fp64 step equal the one process's (``PAR_TOL``); the sharded posterior
-    cache is the one process's bitwise; rank 0 alone wrote; the NCCL group
-    reduces on the card. The fp32 runs' differences are reported."""
+    """The trainers' mains (``PAR_JOBS``): in two spawned ranks of a gloo
+    group (``Training.distributed`` mappings that differ in ``process_id``)
+    on the one card and, at the same time, each once in this process, in a
+    one-rank NCCL group. Checks: the ranks agree exactly; the fp64 runs and
+    stage 2's fp64 step equal the one process's (``PAR_TOL``); the sharded
+    posterior cache is the one process's bitwise; rank 0 alone wrote; the
+    NCCL group reduces on the card. The fp32 runs' differences are reported.
+    The three processes share the card, so each one's step times are its
+    share of it, not its speed alone."""
     import numpy as np
     import torch
 
     from image2video_synthesis_using_cinns_tpu_torch import config as cfg
 
+    augment_rows_check(card)
     out = tmp / "par"
     out.mkdir()
     t0 = time.perf_counter()
     opts = par_configs(tmp)
 
-    def spec(tag: str, n: int, backend: str, save: bool) -> dict:
+    def spec(tag: str, n: int, backend: str, save: str) -> dict:
         port = _free_port()
         jobs = []
         for job in PAR_JOBS:
@@ -3558,45 +3746,57 @@ def phase_parallel_train(card: str, tmp: Path):
         return {"jobs": jobs, "tmp": str(tmp), "out": str(out / tag), "tag": tag,
                 "save": save}
 
-    one_spec = spec("one", 1, PAR_ONE_BACKEND, True)
-    ranks_spec = spec("ranks", PAR_RANKS, "gloo", True)
+    one_spec = spec("one", 1, PAR_ONE_BACKEND, "memory")
+    ranks_spec = spec("ranks", PAR_RANKS, "gloo", "file")
     for sp in (one_spec, ranks_spec):
         Path(sp["out"]).mkdir()
     log(f"  set-up {time.perf_counter() - t0:.2f} s; the configs' batch sizes global; jobs "
         f"{PAR_JOBS}")
     t0 = time.perf_counter()
-    one = par_run(one_spec, 0)
-    log(f"  one process (this one, a one-rank group): {time.perf_counter() - t0:.2f} s; "
-        f"backend {one['backend']}, world {one['world']}, all_reduce on the card "
-        f"{one['all_reduce']}")
+    procs = par_spawn(ranks_spec, PAR_RANKS)
+    try:
+        one = par_run(one_spec, 0)
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    log(f"  one process (this one, a one-rank group, beside the ranks): "
+        f"{time.perf_counter() - t0:.2f} s; backend {one['backend']}, world {one['world']}, "
+        f"all_reduce on the card {one['all_reduce']}")
     if one["backend"] != PAR_ONE_BACKEND or one["world"] != 1 or one["all_reduce"] != [1.0] * 4:
         raise AssertionError(f"the one-rank NCCL group: {one}")
-    gc.collect()
-    torch.cuda.empty_cache()  # the card to the ranks
-    t0 = time.perf_counter()
-    ranks = par_spawn(ranks_spec, PAR_RANKS)
+    ranks = par_collect(ranks_spec, procs)
     log(f"  two ranks (spawned, a gloo group on the one card: NCCL refuses two ranks on one "
-        f"GPU): {time.perf_counter() - t0:.2f} s; backend {ranks[0]['backend']}, all_reduce "
-        f"on the card {ranks[0]['all_reduce']}")
+        f"GPU): their jobs {ranks[0]['run_s']:.2f} and {ranks[1]['run_s']:.2f} s, all done "
+        f"{time.perf_counter() - t0:.2f} s after their start; backend {ranks[0]['backend']}, "
+        f"all_reduce on the card {ranks[0]['all_reduce']}")
     if ranks[0]["world"] != PAR_RANKS or ranks[0]["all_reduce"] != [3.0] * 4:
         raise AssertionError(f"the gloo group: {ranks[0]}")
 
-    def used(a, b, over_largest: bool = False) -> float:
+    def gap(a, b, over_largest: bool = False) -> tuple[float, float]:
         """The largest share of its ``PAR_TOL`` bound that an element of ``a``
-        takes; with ``over_largest``, the bound of the tensor's largest."""
-        d, b = np.abs(a.astype(np.float64) - b), np.abs(b)
-        scale = b.max(initial=0.0) if over_largest else b
-        return float((d / (PAR_TOL["atol"] + PAR_TOL["rtol"] * scale)).max(initial=0.0))
+        takes (with ``over_largest``, the bound of the tensor's largest), and
+        the largest absolute gap; in fp64 on the card."""
+        a = torch.from_numpy(np.asarray(a)).to(DEVICE, torch.float64)
+        b = torch.from_numpy(np.asarray(b)).to(DEVICE, torch.float64)
+        if not b.numel():
+            return 0.0, 0.0
+        d, b = (a - b).abs(), b.abs()
+        scale = b.max() if over_largest else b
+        return (float((d / (PAR_TOL["atol"] + PAR_TOL["rtol"] * scale)).max()),
+                float(d.max()))
 
     errs = {}
     for job in PAR_JOBS:
-        tag, fp64, reported = job["tag"], job.get("fp64", False), job.get("reported", False)
+        tag, fp64 = job["tag"], job.get("fp64", False)
         r0, r1, o = ranks[0][tag], ranks[1][tag], one[tag]
         log(f"  [{card}] {tag}: step s one process {[round(x, 4) for x in o['step_s']]}, rank "
             f"0 {[round(x, 4) for x in r0['step_s']]}, rank 1 "
-            f"{[round(x, 4) for x in r1['step_s']]} (two ranks share one card: not a scaling "
-            f"result); the job's wall s one process {o['wall_s']:.2f}, ranks "
-            f"{r0['wall_s']:.2f}, {r1['wall_s']:.2f}")
+            f"{[round(x, 4) for x in r1['step_s']]} (three processes share one card: not a "
+            f"scaling result); the job's wall s one process {o['wall_s']:.2f}, ranks "
+            f"{r0['wall_s']:.2f}, {r1['wall_s']:.2f}; peak GiB allocated one process "
+            f"{o['peak_gib']:.2f}, ranks {r0['peak_gib']:.2f}, {r1['peak_gib']:.2f}")
         if (r0["train"], r0["eval"], r0["digest"]) != (r1["train"], r1["eval"], r1["digest"]):
             raise AssertionError(f"{tag}: the ranks differ (logs or weights)")
         run_dir = Path(r0["save_path"]).name
@@ -3612,10 +3812,11 @@ def phase_parallel_train(card: str, tmp: Path):
         if not np.isfinite(got).all():
             raise AssertionError(f"{tag}: a logged value is not finite: {got}")
         w2 = dict(np.load(Path(ranks_spec["out"]) / f"{tag}.npz"))
-        w1 = dict(np.load(Path(one_spec["out"]) / f"{tag}.npz"))
-        held = ["logs"] if fp64 and not reported else []
-        e = {"logs": used(got, want), "weights": 0.0, "state": 0.0}
-        absolute = {"logs": float(np.abs(got - want).max()), "weights": 0.0, "state": 0.0}
+        w1 = o.pop("arrays")
+        held = ["logs"] if fp64 else []
+        e, absolute = {}, {}
+        e["logs"], absolute["logs"] = gap(got, want)
+        e["weights"] = e["state"] = absolute["weights"] = absolute["state"] = 0.0
         for k in w1:
             if k == "cache":
                 if not np.array_equal(w2[k], w1[k]):
@@ -3627,10 +3828,10 @@ def phase_parallel_train(card: str, tmp: Path):
             step_group = k.split("/")[0] in ("loss", "grad", "flow64", "state64")
             group = k.split("/")[0] if step_group else (
                 "state" if k.rsplit(".", 1)[-1] in ("u", "v", "mean", "var") else "weights")
-            e[group] = max(e.get(group, 0.0), used(w2[k], w1[k], over_largest=group == "grad"))
-            absolute[group] = max(absolute.get(group, 0.0),
-                                  float(np.abs(w2[k].astype(np.float64) - w1[k]).max(initial=0)))
-            if (fp64 and not reported) or step_group:
+            share, most = gap(w2[k], w1[k], over_largest=group == "grad")
+            e[group] = max(e.get(group, 0.0), share)
+            absolute[group] = max(absolute.get(group, 0.0), most)
+            if fp64 or step_group:
                 held.append(group)
         held = sorted(set(held))
         bad = [g for g in held if e[g] > 1.0]
@@ -3641,17 +3842,16 @@ def phase_parallel_train(card: str, tmp: Path):
             + ", ".join(f"{g} {absolute[g]:.3e} ({e[g]:.3g})" for g in e)
             + f"; held: {held or 'none'}" + (" (the rest reported)" if held != sorted(e) else "")
             + (" ok" if not bad else " FAIL"))
-        if job.get("record"):  # the two card readings ROADMAP asks to settle
-            with np.load(Path(ranks_spec["out"]) / f"{tag}_grads.npz") as g2, \
-                    np.load(Path(one_spec["out"]) / f"{tag}_grads.npz") as g1:
-                log(f"  {tag}: " + par_gap_source(w2, w1, g2, g1))
+        if job.get("record"):  # where the two runs' weights are furthest apart, and why
+            g2 = dict(np.load(Path(ranks_spec["out"]) / f"{tag}_grads.npz"))
+            log(f"  {tag}: " + par_gap_source(w2, w1, g2, o.pop("grads")))
         if bad:
             raise AssertionError(f"{tag}: two ranks differ from one process beyond PAR_TOL in "
                                  f"{bad}")
         errs[tag] = e
-        for sp in (one_spec, ranks_spec):
-            for f in (f"{tag}.npz", f"{tag}_grads.npz"):
-                (Path(sp["out"]) / f).unlink(missing_ok=True)
+        del w1, w2
+        for f in (f"{tag}.npz", f"{tag}_grads.npz"):
+            (Path(ranks_spec["out"]) / f).unlink(missing_ok=True)
     return errs
 
 
@@ -4054,6 +4254,11 @@ def main() -> int:
         t0 = time.perf_counter()
         sp_launches, sp_device_launches = phase_tp_spatial(card, models, t_models["float32"])
         log(f"  phase 4k took {time.perf_counter() - t0:.2f} s")
+        log("== 4l. the empty-disk pipeline (BAIR preset: stage 1, AE, cINN, CLIs, Model)")
+        t0 = time.perf_counter()
+        pl_launches, pl_device_launches = phase_pipeline(card, Path(tmp),
+                                                         str(Path(tmp) / "models"))
+        log(f"  phase 4l took {time.perf_counter() - t0:.2f} s")
 
         log("== 5. timings")
         rows = phase_timings(card, models, x0, residual)
@@ -4094,7 +4299,7 @@ def main() -> int:
 
     # each kernel at the shape its path gives it, in that path's mode (bf16
     # weights): the reverse at the BAIR sampling path's B=6, E=64, the forward
-    # at the transfer's one query, B=1, E=128; launches over all fourteen windows;
+    # at the transfer's one query, B=1, E=128; launches over all fifteen windows;
     # beside them each in the training path's fp32-weight mode at B=10, E=64
     kernels = []
     for name, line, r, shape, err_key in (
@@ -4109,13 +4314,13 @@ def main() -> int:
             "launches": (launches[name] + t_launches[name] + e_launches[name] + tr_launches[name]
                          + s1_launches[name] + ae_launches[name] + ep_launches[name]
                          + ref_launches[name] + c_launches[name] + dp_launches[name]
-                         + sp_launches[name]),
+                         + sp_launches[name] + pl_launches[name]),
             "device_launches": (device_launches[name] + t_device_launches[name]
                                 + e_device_launches[name] + tr_device_launches[name]
                                 + s1_device_launches[name] + ae_device_launches[name]
                                 + ep_device_launches[name] + ref_device_launches[name]
                                 + c_device_launches[name] + dp_device_launches[name]
-                                + sp_device_launches[name]),
+                                + sp_device_launches[name] + pl_device_launches[name]),
             "shape": f"{shape} hidden 512 20 blocks, bf16 weights",
             "max_abs_err": errs[err_key],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

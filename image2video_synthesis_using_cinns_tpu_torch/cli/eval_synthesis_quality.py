@@ -49,7 +49,8 @@ def evaluate(model, loader, stream, dataset: str) -> dict[str, float]:
     return stream.results()
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None) -> dict[str, float]:
+    """The CLI; returns the scores it printed."""
     parser = argparse.ArgumentParser()
     add_serving_flags(parser)
     parser.add_argument("-texture", type=str, required=False)
@@ -93,6 +94,7 @@ def main(argv: list[str] | None = None) -> None:
     if args.FVD:
         print("Evaluate FVD")
         print(f"FVD score of {results['FVD']}")
+    return results
 
 
 if __name__ == "__main__":

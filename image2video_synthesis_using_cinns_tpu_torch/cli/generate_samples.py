@@ -101,8 +101,6 @@ def main(argv: list[str] | None = None) -> None:
     args = parser.parse_args(argv)
     serving = serving_options(args)
 
-    import imageio
-
     from ..models.facade import Model
     from ..utils import video as vid
 
@@ -118,7 +116,7 @@ def main(argv: list[str] | None = None) -> None:
     save_path = f"./assets/results/{path_ds}/"
     os.makedirs(save_path, exist_ok=True)
     gif = vid.convert_seq2gif(np.concatenate(videos, axis=0))
-    imageio.mimsave(save_path + "results.gif", gif.astype(np.uint8), fps=3)
+    vid.write_gif(save_path + "results.gif", gif)
     print(f"Animations saved in {save_path}")
 
 

@@ -15,7 +15,9 @@ is the JAX package's: uint8 (B, T, H, W, 3) in, float32 (B, T, H, W, 3) in
   [0, 16], then the enabled colour ops (factor != 0) in a random order per
   clip: brightness, contrast and saturation blend with factors ~ U(max(0,
   1 - x), 1 + x) and clip to [0, 1]; contrast blends with the grayscale mean
-  of each frame; hue shifts by U(-h, h) in HSV and does not clip.
+  of each frame, summed exactly (``_frame_mean``), so that a frame's result
+  does not depend on the other frames of its batch; hue shifts by U(-h, h)
+  in HSV and does not clip.
 
 The train branch is two parts, so that a test can hand another package's
 draws to the apply: ``draw_augment`` draws the per-clip parameters from a
@@ -32,6 +34,7 @@ from ..ops.resize import resize_bilinear
 
 COLOUR_OPS = ("brightness", "contrast", "saturation", "hue")
 CROP_RANGE = 17  # crop offsets are drawn from [0, CROP_RANGE)
+FIXED_POINT_BITS = 40  # the contrast mean's fixed point: int64 holds 2**23 values <= 1 a frame
 
 
 def enabled_ops(params: dict) -> tuple[str, ...]:
@@ -65,9 +68,23 @@ def _adjust_brightness(x, factor):
     return torch.clamp(x * factor, 0.0, 1.0)
 
 
+def _frame_mean(g: torch.Tensor) -> torch.Tensor:
+    """The mean over (H, W, 1) of each frame of ``g`` (B, T, H, W, 1), summed
+    exactly: each value in fixed point (int64 steps of ``2**-FIXED_POINT_BITS``,
+    exact for values from ``2**-17`` up; smaller ones round on their own), so
+    that the order of the sum cannot move the result. A card's reduction
+    picks that order by how many frames the batch holds, so a float sum gives
+    a frame other bits in a batch of 3 than in one of 6, and a rank's rows
+    would not be the one-process rows (``parallel/distributed.py``)."""
+    scale = 2.0 ** FIXED_POINT_BITS
+    fixed = torch.round(g.to(torch.float64) * scale).to(torch.int64)
+    total = fixed.sum(dim=(-3, -2, -1), keepdim=True)
+    n = g.shape[-3] * g.shape[-2] * g.shape[-1]
+    return (total.to(torch.float64) / (n * scale)).to(g.dtype)
+
+
 def _adjust_contrast(x, factor):
-    # the grayscale mean of each frame: over (H, W, 1) of (B, T, H, W, 1)
-    mean = _grayscale(x).mean(dim=(-3, -2, -1), keepdim=True)
+    mean = _frame_mean(_grayscale(x))
     return torch.clamp(factor * x + (1 - factor) * mean, 0.0, 1.0)
 
 

@@ -6,7 +6,10 @@ one). ``build_model`` makes a sampling ``Model`` from a preset with random
 torch weights drawn from a seed, with no checkpoint directory and no YAML
 reader: the configs are built in memory, with the keys of the saved ones.
 ``dryrun_multichip`` is the JAX system's multi-device dry run on a data x
-model grid of devices.
+model grid of devices. ``stage1_config``, ``stage2_ae_config`` and
+``stage2_config`` are the trainers' configs of a preset, and
+``make_bair_data_dir`` a synthetic BAIR dataset, as the JAX package's
+fixtures write them (``cli/pipeline_drive.py`` trains from them).
 
 ``make_reference_model_dir`` writes a chained stage-1/AE/stage-2 directory
 whose checkpoints are ``.pth`` files in the reference framework's key
@@ -36,6 +39,8 @@ PRESETS = {
         enc_channels=[16, 32, 32, 32, 32], enc_stride_t=[1, 2, 2, 2], enc_stride_s=[1, 2, 2, 1],
         upsample_s=[1, 1], upsample_t=[1, 1],
         n_flows=4, flow_factor=4, cond_z=16, ae_type="resnet18",
+        # keep the temporal discriminator's last spatial size at 4 for 32 px inputs
+        disc_channels=[16, 16, 32, 32, 32], disc_stride_s=[1, 1, 2, 1],
     ),
     # reference landscape/DTDB-style 128 px architecture
     "landscape": dict(
@@ -44,6 +49,7 @@ PRESETS = {
         enc_stride_s=[2, 2, 2, 2],
         upsample_s=[2, 2], upsample_t=[2, 1],
         n_flows=20, flow_factor=8, cond_z=128, ae_type="resnet50", ae_norm="bn",
+        disc_channels=[64, 64, 128, 256, 512], disc_stride_s=[1, 2, 2, 2],
     ),
     # reference BAIR architecture (stage1_VAE, stage2_cINN and stage2_cINN/AE
     # bair_config.yaml)
@@ -53,6 +59,7 @@ PRESETS = {
         enc_stride_s=[1, 2, 2, 2],
         upsample_s=[2, 1], upsample_t=[2, 1],
         n_flows=20, flow_factor=8, cond_z=64, ae_type="resnet50",
+        disc_channels=[64, 64, 128, 256, 512], disc_stride_s=[1, 1, 2, 2],
     ),
 }
 
@@ -291,6 +298,136 @@ def float64_training(trainer) -> Iterator[None]:
         yield
     finally:
         trainer.build_models, trainer.build_augment = build, augment
+
+
+# -- the trainers' configs and a synthetic BAIR dataset ---------------------------------------
+
+def stage1_config(p: dict) -> Config:
+    """The stage-1 trainer's config of preset ``p`` (the JAX package's
+    ``testing.stage1_config``)."""
+    return Config({
+        "Decoder": {
+            "channel_factor": p["nf"], "z_dim": p["z_dim"], "upsample_s": p["upsample_s"],
+            "upsample_t": p["upsample_t"], "spectral_norm": True,
+        },
+        "Encoder": {
+            "res_type_encoder": "resnet18", "deterministic": False, "use_max_pool": False,
+            "z_dim": p["z_dim"], "channels": p["enc_channels"], "stride_t": p["enc_stride_t"],
+            "stride_s": p["enc_stride_s"],
+        },
+        "Discriminator_Temporal": {
+            "eval_seq_length": 16, "res_type_encoder": "resnet18", "deterministic": False,
+            "use_max_pool": True, "channels": p["disc_channels"], "stride_t": [2, 2, 2, 2],
+            "stride_s": p["disc_stride_s"], "spectral_norm": True,
+        },
+        "Discriminator_Patch": _patch_discriminator(p),
+        "Training": {
+            "patch_GAN": "basic", "GAN_Loss": "hinge",
+            "w_coup_s": 1, "w_coup_t": 1, "w_fmap_t": 10, "w_percep": 30,
+            "w_recon": 10, "w_GP": 10, "w_kl": 1e-5,
+            "subsample_length": 12 if p["seq_length"] > 12 else p["seq_length"] - 1,
+            "pretrain": 1, "n_epochs": 55, "lr": 2e-4, "workers": 4,
+            "bs": 10, "bs_eval": 10, "verbose_idx": 30,
+            "weight_decay": 1e-5, "lr_gamma": 0.98, "FVD": "FVD",
+            "savename": "fixture", "save_path": "", "reload_path": "",
+        },
+        "Data": {
+            "sequence_length": p["seq_length"], "img_size": p["img_size"], "dataset": "BAIR",
+            "reverse": False, "aug": True, "data_path": "",
+            "Augmentation": {"brightness": 0.1, "contrast": 0.1, "saturation": 0.1, "hue": 0,
+                             "prob_hflip": 0.5},
+        },
+        "Logging": {"entity": None, "project": None, "mode": "disabled"},
+    })
+
+
+def _patch_discriminator(p: dict) -> dict:
+    return {"in_channels": 3, "ndf": 64 if p["nf"] >= 64 else 16, "n_layers": 3,
+            "use_actnorm": True, "spectral_norm": True}
+
+
+def stage2_ae_config(p: dict) -> Config:
+    """The stage-2 AE trainer's config of preset ``p`` (the JAX package's
+    ``testing.stage2_ae_config``)."""
+    return Config({
+        "AE": {
+            "deterministic": False, "in_size": p["img_size"], "norm": p.get("ae_norm", "in"),
+            "encoder_type": p["ae_type"], "use_actnorm_in_dec": False, "z_dim": p["cond_z"],
+            "pre_process": False, "pretrained": False,
+        },
+        "Discriminator_Patch": _patch_discriminator(p),
+        "Training": {
+            "w_kl": 1e-5, "n_epochs": 60, "lr": 2e-4, "bs": 30, "weight_decay": 0,
+            "workers": 4, "pretrain": 20, "savename": "fixture", "save_path": "",
+        },
+        "Data": {
+            "sequence_length": 1, "img_size": p["img_size"], "dataset": "BAIR", "aug": True,
+            "data_path": "",
+            "Augmentation": {"brightness": 0.2, "contrast": 0.2, "saturation": 0.2, "hue": 0.1,
+                             "prob_hflip": 0.5},
+        },
+        "Logging": {"entity": None, "project": None, "mode": "disabled"},
+    })
+
+
+def stage2_config(p: dict, stage1_path: str, ae_path: str, control: bool = False) -> Config:
+    """The cINN trainer's config of preset ``p``, chained to the stage-1 run
+    ``stage1_path`` and the AE run ``ae_path`` (the JAX package's
+    ``testing.stage2_config``)."""
+    def chain(path: str) -> dict:
+        return {"model_name": os.path.basename(path.rstrip("/")),
+                "model_path": os.path.dirname(path.rstrip("/")) + "/"}
+
+    return Config({
+        "Flow": {"n_flows": p["n_flows"], "flow_hidden_depth": 2,
+                 "flow_mid_channels_factor": p["flow_factor"]},
+        "Conditioning_Model": {"z_dim": p["cond_z"], "checkpoint_name": "Encoder_stage2",
+                               **chain(ae_path)},
+        "First_stage_model": {"checkpoint_encoder": "best_PFVD_ENC",
+                              "checkpoint_decoder": "best_PFVD_GEN", **chain(stage1_path)},
+        "Training": {
+            "n_epochs": 31, "lr": 1e-5, "workers": 4, "bs": 50, "bs_eval": 10,
+            "control": control, "control_dim": 3, "verbose_idx": 30, "weight_decay": 0,
+            "gamma": 0.5, "step_size": 7, "beta1": 0.9, "beta2": 0.99, "amsgrad": True,
+            "savename": "fixture", "save_path": "",
+        },
+        "Data": {
+            "sequence_length": p["seq_length"], "img_size": p["img_size"], "dataset": "BAIR",
+            "aug": True, "data_path": "",
+            "Augmentation": {"brightness": 0.1, "contrast": 0.1, "saturation": 0.1, "hue": 0,
+                             "prob_hflip": 0.5},
+        },
+        "Logging": {"entity": None, "project": None, "mode": "disabled"},
+    })
+
+
+def make_bair_data_dir(root: str, n_videos: int = 2, img: int = 32,
+                       modes: tuple = ("train", "eval", "test")) -> str:
+    """A synthetic BAIR-layout dataset, the JAX package's
+    ``testing.make_bair_data_dir`` file for file: per mode ``n_videos`` clips
+    ``<root>/<mode>/traj_0/<k>/<frame>.png`` of 30 frames (noise and a moving
+    square), each with its ``endeffector_positions.csv``. Returns ``root``."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    for mode in modes:
+        for k in range(n_videos):
+            d = os.path.join(root, mode, "traj_0", str(k))
+            os.makedirs(d, exist_ok=True)
+            x0, y0 = rng.integers(0, img - 8, 2)
+            dx, dy = rng.integers(-1, 2, 2)
+            positions = []
+            for f in range(30):
+                frame = rng.integers(0, 40, (img, img, 3)).astype(np.uint8)
+                xx = int(np.clip(x0 + f * dx, 0, img - 8))
+                yy = int(np.clip(y0 + f * dy, 0, img - 8))
+                frame[yy:yy + 8, xx:xx + 8] = [250, 120, 30]
+                Image.fromarray(frame).save(os.path.join(d, f"{f}.png"))
+                positions.append([0.4264 + 0.0002 * xx / img, -0.3 + 0.8 * yy / img,
+                                  0.19 + 0.1 * f / 30])
+            np.savetxt(os.path.join(d, "endeffector_positions.csv"), np.asarray(positions),
+                       delimiter=",")
+    return root
 
 
 # -- reference-layout checkpoints ------------------------------------------------------------

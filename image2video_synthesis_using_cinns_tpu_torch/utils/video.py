@@ -1,8 +1,8 @@
 """Video export (port of ``utils/video.py``): ``denorm``, ``convert_seq2gif``,
-``save_video`` and the MJPEG AVI writer and reader it falls back on, and the
-trainers' ``plot_vid``. Sequences are numpy arrays (or CPU tensors) in the
-layout the facade returns, (B, T, C, H, W) in [-1, 1]. ``imageio`` and PIL
-are imported only where a file is written or read."""
+``write_gif``, ``save_video`` and the MJPEG AVI writer and reader it falls
+back on, and the trainers' ``plot_vid``. Sequences are numpy arrays (or CPU
+tensors) in the layout the facade returns, (B, T, C, H, W) in [-1, 1].
+``imageio`` and PIL are imported only where a file is written or read."""
 
 from __future__ import annotations
 
@@ -25,6 +25,23 @@ def convert_seq2gif(sequence) -> np.ndarray:
     if maxv > 0:
         img_gif = 255.0 * img_gif / maxv
     return img_gif
+
+
+def write_gif(path: str, frames, fps: int = 3) -> None:
+    """(T, H, W, 3) frames as a looping GIF at ``fps``, as uint8:
+    ``imageio.mimsave`` where imageio is installed, else PIL's GIF writer (a
+    machine with PIL alone)."""
+    frames = np.asarray(frames).astype(np.uint8)
+    try:
+        import imageio
+    except ImportError:
+        from PIL import Image
+
+        images = [Image.fromarray(f) for f in frames]
+        images[0].save(path, save_all=True, append_images=images[1:],
+                       duration=round(1000 / fps), loop=0)
+        return
+    imageio.mimsave(path, frames, fps=fps)
 
 
 def save_video(path: str, video: np.ndarray, fps: int = 3, loops: int = 6) -> None:

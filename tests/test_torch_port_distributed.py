@@ -493,6 +493,51 @@ def test_collectives_match_the_full_batch(runs, key, tol):
         np.testing.assert_allclose(got, want_r, rtol=tol, atol=tol * scale, err_msg=key)
 
 
+def test_ae_batch_rows_do_not_depend_on_the_batch(two_threads):
+    """A rank's augmented rows are the one-process batch's rows, bitwise.
+
+    The AE's fp64 two-rank run on the card took another first step than one
+    process (opposite signs at one encoder weight): its step-0 images
+    differed in the last bits. The contrast op blends with each frame's
+    grayscale mean, and a card's reduction orders that sum by how many
+    frames the batch holds (PyTorch's CUDA reduce sizes its blocks by the
+    count of outputs), so a float sum gave a rank's 3 frames other bits than
+    the same frames in the batch of 6, and the AE's random networks turned
+    that into opposite steps. The mean is now summed exactly
+    (``data/augment.py``). The CPU keeps one order for any batch, so here
+    the order is varied directly: the same frames with their pixels
+    permuted must give the permuted output bitwise (a float sum fails
+    that). The global batch is also held to the JAX package's augment of
+    the same draws (``test_torch_port_train_augment.py``'s bound)."""
+    import jax
+    from image2video_synthesis_using_cinns_tpu.data.augment import build_augment as jbuild
+    from image2video_synthesis_using_cinns_tpu_torch.data import augment as taug
+    from image2video_synthesis_using_cinns_tpu_torch.parallel import distributed
+    from test_torch_port_train_augment import jax_draws
+
+    _, ae = tiny_configs()
+    params, img, n = ae["Data"]["Augmentation"], ae["Data"]["img_size"], 6
+    raw = np.random.default_rng(12).integers(0, 256, (n, 1, img, img, 3), dtype=np.uint8)
+    key = jax.random.PRNGKey(3)
+    draws = jax_draws(key, n, params)
+
+    def apply(frames, d):
+        return taug.apply_augment(torch.from_numpy(frames), img, params, False, d).numpy()
+
+    full = apply(raw, draws)
+    np.testing.assert_allclose(full, np.asarray(jbuild(img, params, False, True)(raw, key)),
+                               rtol=1e-5, atol=1e-5)
+    for r in range(RANKS):
+        rows = distributed.host_batch_slice(n, r, RANKS)
+        np.testing.assert_array_equal(apply(raw[rows], {k: v[rows] for k, v in draws.items()}),
+                                      full[rows])
+    perm = np.random.default_rng(13).permutation(img * img)
+    unflipped = dict(draws, flip=torch.zeros(n, dtype=torch.bool))  # a flip moves pixels too
+    permuted = raw.reshape(n, 1, img * img, 3)[:, :, perm].reshape(raw.shape)
+    np.testing.assert_array_equal(apply(permuted, unflipped).reshape(n, 1, img * img, 3),
+                                  apply(raw, unflipped).reshape(n, 1, img * img, 3)[:, :, perm])
+
+
 if __name__ == "__main__":
     with open(sys.argv[1]) as f:
         _spec = json.load(f)
