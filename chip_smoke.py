@@ -193,6 +193,17 @@ Phases (any failure raises and the script exits non-zero):
    drive's batches; the scores finite; the flow ``Model`` serves from the
    directory the trained one bitwise, its video finite in [-1, 1], z
    against the plain chain. Prints each stage's wall time.
+   4m. The long-horizon convergence drives (``cli/convergence_drive.main``)
+   at the full BAIR preset, cut to a few chunks (k 10): stage 1 (bf16, the
+   gates open) 30 steps at bs 10, the AE (the discriminator live) 30 steps at
+   bs 30, stage 2 50 steps at bs 50, each with ``--json``, in one counted
+   window. Checks: every metric finite; each summary's keys those of the JAX
+   drive's recorded ``docs/evidence/convergence_*_r5.json``; the artifact
+   reads back; ``--compare`` against it passes, against a copy with one field
+   made better beyond its slack exits 1 with REGRESSION lines; stage 2's NLL
+   over its last 10 steps below its first 10; no flow chain. Prints each
+   drive's set-up time and ms a step. The full-size curves run outside this
+   script (``python -m ...cli.convergence_drive stage1 --steps 1000``).
 5. Timings: each kernel's median ms beside its plain version and its bound;
    the reverse chain at B = 1, 6 and 16; where a chain's time goes, from the
    timeline build (per layer and pass, and the kernel's own span), and a
@@ -240,8 +251,8 @@ Phases (any failure raises and the script exits non-zero):
    the one process's arrays in memory instead of a file, and compares on
    the card; every check it made before stays, and the AE's whole fp64 run,
    reported before, is held.
-8. A ``{"kernels": [...]}`` line (launches summed over the fifteen counted
-   windows, 4l's the fifteenth), then the last line ``{"ok": true, "device":
+8. A ``{"kernels": [...]}`` line (launches summed over the sixteen counted
+   windows, 4m's the sixteenth), then the last line ``{"ok": true, "device":
    {...}}``.
 
 Exits non-zero without a result when no CUDA device is visible, and when the
@@ -3226,6 +3237,114 @@ def phase_pipeline(card: str, tmp: Path, weights_root: str):
     return launches, device_launches
 
 
+# phase 4m, the long-horizon convergence drives (cli/convergence_drive.py) cut to a
+# few chunks of k steps at the drives' own batches: (drive, steps, bs); the full
+# curves (1,000 steps of stage 1 and the AE, 400 of stage 2) run in calls of
+# their own
+CONV_DRIVES = (("stage1", 30, 10), ("ae", 30, 30), ("stage2", 50, 50))
+CONV_K = 10
+CONV_EVIDENCE = Path(__file__).resolve().parent / "docs" / "evidence"
+# one field of each artifact made better than the run beyond the drive's slack
+CONV_BETTER = {"stage1": ("l1_last100", lambda v: v / 2),
+               "stage2": ("nll_final", lambda v: v - 20),
+               "ae": ("recon_last100", lambda v: v / 2)}
+
+
+def phase_convergence(card: str, tmp: Path):
+    """The convergence drives through ``convergence_drive.main`` at the full
+    preset (``CONV_DRIVES``, k ``CONV_K``, ``--json``), in one counted window.
+    Checks: every metric finite; each summary's keys those of the JAX drive's
+    recorded ``docs/evidence/convergence_*_r5.json``; the written artifact
+    reads back as the run's payload; ``--compare`` against it passes and
+    against a copy with one field made better beyond its slack exits 1 with
+    REGRESSION lines (the drive replayed from the run, so that only the CLI's
+    diff runs again); stage 2's NLL over its last 10 steps below its first 10;
+    no flow chain in the window (the drives run no validation or sampling).
+    Prints each drive's set-up time and ms a step."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from image2video_synthesis_using_cinns_tpu_torch.cli import convergence_drive as cd
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
+
+    root = tmp / "convergence"
+    root.mkdir()
+    runs = {}
+    torch.cuda.synchronize()
+    zero_counts()
+    for which, steps, bs in CONV_DRIVES:
+        path = root / f"{which}.json"
+        out = cd.main([which, "--preset", PRESET, "--steps", str(steps), "--bs", str(bs),
+                       "--k", str(CONV_K), "-device", DEVICE, "--json", str(path)])
+        runs[which] = (out, path)
+        run = out["run"]
+        log(f"  [{card}] convergence_drive {which} {PRESET}, {steps} steps at bs {bs}, k "
+            f"{CONV_K}: set-up {run['build_s']:.2f} s, steps {run['wall_s']:.2f} s, "
+            f"{1e3 * run['wall_s'] / steps:.2f} ms a step")
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches, device_launches = dict(fk.launches), dict(fk.device_launches)
+    log(f"  convergence chain launches: {launches}; device kernels they launched: "
+        f"{device_launches}; expected none")
+    if any(launches.values()) or any(device_launches.values()):
+        raise AssertionError(f"convergence: the drives launched chains {launches}")
+
+    for which, (out, path) in runs.items():
+        payload, hist = out["payload"], out["run"]["hist"]
+        bad = [k for k, v in hist.items() if not np.isfinite(np.asarray(v)).all()]
+        if bad or payload["metrics"]["finite"] is not True:
+            raise AssertionError(f"convergence {which}: non-finite metrics {bad}")
+        recorded = json.loads((CONV_EVIDENCE / f"convergence_{which}_r5.json").read_text())
+        if list(payload["metrics"]) != list(recorded["metrics"]) or list(payload) != list(recorded):
+            raise AssertionError(f"convergence {which}: keys {list(payload['metrics'])}, the "
+                                 f"recorded artifact's {list(recorded['metrics'])}")
+        if json.loads(path.read_text()) != json.loads(json.dumps(payload)):
+            raise AssertionError(f"convergence {which}: {path.name} is not the run's payload")
+        key, better = CONV_BETTER[which]
+        doctored = json.loads(path.read_text())
+        doctored["metrics"][key] = better(doctored["metrics"][key])
+        doctored_path = root / f"{which}_better.json"
+        doctored_path.write_text(json.dumps(doctored))
+        args = [which, "--preset", PRESET, "--k", str(CONV_K), "-device", DEVICE]
+        drive = cd.drive
+        cd.drive = lambda *a, **k: (dict(payload["metrics"]), out["run"])
+        try:
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                cd.main(args + ["--compare", str(path)])
+            if "PASS: no convergence regression" not in text.getvalue():
+                raise AssertionError(f"convergence {which}: --compare against its own artifact "
+                                     f"printed {text.getvalue()!r}")
+            text = io.StringIO()
+            code = 0
+            with contextlib.redirect_stdout(text):
+                try:
+                    cd.main(args + ["--compare", str(doctored_path)])
+                except SystemExit as e:
+                    code = e.code
+        finally:
+            cd.drive = drive
+        regressions = [ln for ln in text.getvalue().splitlines()
+                       if ln.startswith(f"REGRESSION vs {doctored_path}: {key}")]
+        if code != 1 or not regressions:
+            raise AssertionError(f"convergence {which}: --compare against a better artifact "
+                                 f"exited {code} printing {text.getvalue()!r}")
+        m = payload["metrics"]
+        log(f"  {which}: {json.dumps(m)}")
+        log(f"  {which}: --json read back; --compare own artifact PASS; better {key} exit 1: "
+            f"{regressions[0]}")
+    losses = np.asarray(runs["stage2"][0]["run"]["hist"]["Loss"])
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    log(f"  stage2 NLL: first 10 steps {first:.3f}, last 10 {last:.3f}")
+    if not last < first:
+        raise AssertionError(f"convergence stage2: NLL {first:.3f} -> {last:.3f} did not fall")
+    return launches, device_launches
+
+
 def par_configs(tmp: Path) -> dict:
     """The configs of the multi-process jobs (no ``distributed`` yet): stage 2
     at bs 50 on phase 4d's splits, chained to 4e's stage-1 run and 4f's AE,
@@ -4259,6 +4378,10 @@ def main() -> int:
         pl_launches, pl_device_launches = phase_pipeline(card, Path(tmp),
                                                          str(Path(tmp) / "models"))
         log(f"  phase 4l took {time.perf_counter() - t0:.2f} s")
+        log("== 4m. the convergence drives (BAIR preset: stage 1, AE, stage 2, a few chunks)")
+        t0 = time.perf_counter()
+        cv_launches, cv_device_launches = phase_convergence(card, Path(tmp))
+        log(f"  phase 4m took {time.perf_counter() - t0:.2f} s")
 
         log("== 5. timings")
         rows = phase_timings(card, models, x0, residual)
@@ -4299,7 +4422,7 @@ def main() -> int:
 
     # each kernel at the shape its path gives it, in that path's mode (bf16
     # weights): the reverse at the BAIR sampling path's B=6, E=64, the forward
-    # at the transfer's one query, B=1, E=128; launches over all fifteen windows;
+    # at the transfer's one query, B=1, E=128; launches over all sixteen windows;
     # beside them each in the training path's fp32-weight mode at B=10, E=64
     kernels = []
     for name, line, r, shape, err_key in (
@@ -4314,13 +4437,14 @@ def main() -> int:
             "launches": (launches[name] + t_launches[name] + e_launches[name] + tr_launches[name]
                          + s1_launches[name] + ae_launches[name] + ep_launches[name]
                          + ref_launches[name] + c_launches[name] + dp_launches[name]
-                         + sp_launches[name] + pl_launches[name]),
+                         + sp_launches[name] + pl_launches[name] + cv_launches[name]),
             "device_launches": (device_launches[name] + t_device_launches[name]
                                 + e_device_launches[name] + tr_device_launches[name]
                                 + s1_device_launches[name] + ae_device_launches[name]
                                 + ep_device_launches[name] + ref_device_launches[name]
                                 + c_device_launches[name] + dp_device_launches[name]
-                                + sp_device_launches[name] + pl_device_launches[name]),
+                                + sp_device_launches[name] + pl_device_launches[name]
+                                + cv_device_launches[name]),
             "shape": f"{shape} hidden 512 20 blocks, bf16 weights",
             "max_abs_err": errs[err_key],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -132,7 +132,21 @@ def dumps(config: Mapping[str, Any]) -> str:
     return "\n".join(lines) + "\n"
 
 
-def save(config: Mapping[str, Any], path: str | os.PathLike) -> None:
-    """Write ``config`` as YAML (``dumps``)."""
+def save(config: Mapping[str, Any], path: str | os.PathLike | io.IOBase,
+         pyyaml: bool = False) -> None:
+    """Write ``config`` as YAML (``dumps``) to a path or an open text stream.
+    ``pyyaml=True`` writes the JAX package's layout instead, PyYAML's
+    ``safe_dump`` in the given key order (a mapping of scalars in flow
+    style, wrapped at 80 columns); it needs ``yaml``."""
+    if pyyaml:
+        import yaml
+
+        data = config.to_dict() if isinstance(config, Config) else dict(config)
+        text = yaml.safe_dump(data, sort_keys=False, default_flow_style=None)
+    else:
+        text = dumps(config)
+    if hasattr(path, "write"):
+        path.write(text)
+        return
     with open(path, "w") as f:
-        f.write(dumps(config))
+        f.write(text)

@@ -19,13 +19,14 @@ import pytest
 import torch
 from PIL import Image
 
-from image2video_synthesis_using_cinns_tpu.testing import PRESETS, make_model_dir
+from image2video_synthesis_using_cinns_tpu.testing import PRESETS
 from image2video_synthesis_using_cinns_tpu.utils import video as jvideo
 from image2video_synthesis_using_cinns_tpu_torch.cli import generate_samples, generate_transfer
 from image2video_synthesis_using_cinns_tpu_torch.utils import seed as tseed
 from image2video_synthesis_using_cinns_tpu_torch.utils import video as tvideo
 from test_torch_port_eval import same_residuals  # noqa: F401
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from test_torch_port_model_dir import make_model_dir
 from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 

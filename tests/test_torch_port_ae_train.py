@@ -57,7 +57,6 @@ from image2video_synthesis_using_cinns_tpu.parallel.mesh import make_mesh
 from image2video_synthesis_using_cinns_tpu.testing import (
     PRESETS,
     make_bair_data_dir,
-    make_model_dir,
     stage1_config,
     stage2_config,
 )
@@ -76,6 +75,7 @@ from test_torch_port_ae_layers import cf
 from test_torch_port_ae_step import _flat, ae_opt, jax_variables, port_models
 from test_torch_port_stage1_step import two_threads  # noqa: F401
 from test_torch_port_train_augment import jax_draws
+from test_torch_port_model_dir import make_model_dir
 from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 CSV_TOL, EMBED_TOL = 1e-4, 1e-5

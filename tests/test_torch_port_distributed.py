@@ -308,7 +308,8 @@ def _free_port() -> int:
 
 def _configs(tmp, tcfg):
     """The four runs' configs (one process), and per rank with its mapping."""
-    from image2video_synthesis_using_cinns_tpu.testing import make_bair_data_dir, make_model_dir
+    from image2video_synthesis_using_cinns_tpu.testing import make_bair_data_dir
+    from test_torch_port_model_dir import make_model_dir
 
     model_dir = make_model_dir(str(tmp / "ckpts"), preset="tiny")
     d32 = make_bair_data_dir(str(tmp / "d32") + "/", n_videos=8, img=32, modes=("train", "eval"))

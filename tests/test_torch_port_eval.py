@@ -32,7 +32,7 @@ from image2video_synthesis_using_cinns_tpu.metrics import fvd as jfvd
 from image2video_synthesis_using_cinns_tpu.metrics import lpips_eval as jlpips
 from image2video_synthesis_using_cinns_tpu.metrics import streaming_eval as jstream
 from image2video_synthesis_using_cinns_tpu.models.backbones.vgg16 import VGG16Features as JVGG
-from image2video_synthesis_using_cinns_tpu.testing import make_bair_data_dir, make_model_dir
+from image2video_synthesis_using_cinns_tpu.testing import make_bair_data_dir
 from image2video_synthesis_using_cinns_tpu_torch.cli import eval_diversity, eval_synthesis_quality
 from image2video_synthesis_using_cinns_tpu_torch.metrics import fid as tfid
 from image2video_synthesis_using_cinns_tpu_torch.metrics import fvd as tfvd
@@ -41,6 +41,7 @@ from image2video_synthesis_using_cinns_tpu_torch.metrics import streaming_eval a
 from image2video_synthesis_using_cinns_tpu_torch.models.backbones.vgg16 import VGG16Features
 from image2video_synthesis_using_cinns_tpu_torch.utils import convert
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from test_torch_port_model_dir import make_model_dir
 from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 KIND_SEEDS = {"kinetics": 3, "dt16": 4, "dt32": 5}
@@ -254,9 +255,17 @@ def test_eval_diversity_cli_matches_jax(tiny_dirs, stand_ins, same_residuals, mo
         assert np.isfinite(x) and abs(x - y) <= 1e-3 * abs(y), (a, b)
 
 
+@pytest.fixture(scope="module")
+def one_device_scores():
+    """Each CLI's printed scores on one device, by CLI, made once for both
+    multi-device cases."""
+    return {}
+
+
 @pytest.mark.parametrize("flag", [["-spatial_shard", "2", "-data_parallel"], ["-spatial_shard", "2"]])
 @pytest.mark.parametrize("cli", [eval_synthesis_quality, eval_diversity])
-def test_multi_device_flags_serve(cli, flag, tiny_dirs, stand_ins, monkeypatch, capsys):
+def test_multi_device_flags_serve(cli, flag, tiny_dirs, stand_ins, one_device_scores,
+                                  monkeypatch, capsys):
     """``-spatial_shard 2``, alone (the first two of four CPU devices) or
     beside ``-data_parallel`` (a 2 x 2 grid), prints the scores one device
     prints, to 1e-3."""
@@ -273,8 +282,11 @@ def test_multi_device_flags_serve(cli, flag, tiny_dirs, stand_ins, monkeypatch, 
         flags = ["-bs", "6", "-FID", "1", "-LPIPS", "1", "-FVD", "1", "-DTFVD", "1"]
     args = ["-dataset", "bair", "-data_path", data, "-ckpt_path", ckpt, "-seq_length", "4",
             "-device", "cpu", *flags]
-    cli.main(args)
-    want = _lines(capsys.readouterr().out, prefix)
+    if cli not in one_device_scores:
+        capsys.readouterr()
+        cli.main(args)
+        one_device_scores[cli] = _lines(capsys.readouterr().out, prefix)
+    want = one_device_scores[cli]
     cli.main(args + flag)
     got = _lines(capsys.readouterr().out, prefix)
     assert len(got) == len(want) > 0

@@ -19,10 +19,10 @@ import pytest
 import torch
 
 from image2video_synthesis_using_cinns_tpu.models.facade import Model as JaxModel
-from image2video_synthesis_using_cinns_tpu.testing import make_model_dir
 from image2video_synthesis_using_cinns_tpu_torch.models.facade import Model, resolve_device
 from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from test_torch_port_model_dir import make_model_dir
 from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "tiny_sample_v1.npz")

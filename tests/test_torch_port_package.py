@@ -24,7 +24,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "image2video_synthesis_using_cinns_tpu_torch"
 # the JAX package, its libraries and the scripts beside it (``scripts/``)
 FORBIDDEN = ("jax", "flax", "optax", "image2video_synthesis_using_cinns_tpu", "scripts",
-             "fetch_weights", "parity_report", "convert_weights")
+             "fetch_weights", "parity_report", "convert_weights", "gen_configs",
+             "convergence_drive")
 
 
 def _imported_modules(path: Path):
@@ -44,7 +45,8 @@ def test_port_imports_no_jax():
     assert len(files) > 15
     assert {PORT / "cli" / "convert_weights.py", PORT / "utils" / "profiling.py",
             PORT / "train" / "posterior_cache.py", PORT / "metrics" / "diversity.py",
-            PORT / "cli" / "pipeline_drive.py"} <= set(files)
+            PORT / "cli" / "pipeline_drive.py", PORT / "cli" / "convergence_drive.py",
+            PORT / "cli" / "gen_configs.py"} <= set(files)
     bad = []
     for f in files:
         for mod in _imported_modules(f):

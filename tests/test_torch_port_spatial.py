@@ -33,7 +33,7 @@ from image2video_synthesis_using_cinns_tpu.models.facade import Model as JModel
 from image2video_synthesis_using_cinns_tpu.models.stage1.decoder import Generator as JGenerator
 from image2video_synthesis_using_cinns_tpu.parallel.mesh import make_mesh as jmake_mesh
 from image2video_synthesis_using_cinns_tpu.parallel.spatial import spatial_sharding as jscope
-from image2video_synthesis_using_cinns_tpu.testing import PRESETS, make_model_dir
+from image2video_synthesis_using_cinns_tpu.testing import PRESETS
 from image2video_synthesis_using_cinns_tpu_torch.models import facade
 from image2video_synthesis_using_cinns_tpu_torch.models.facade import Model
 from image2video_synthesis_using_cinns_tpu_torch.models.stage1.decoder import Generator
@@ -42,6 +42,7 @@ from image2video_synthesis_using_cinns_tpu_torch.parallel.mesh import make_mesh,
 from image2video_synthesis_using_cinns_tpu_torch.testing import dryrun_multichip
 from image2video_synthesis_using_cinns_tpu_torch.utils.convert import to_state_dict
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from test_torch_port_model_dir import make_model_dir
 from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 P = PRESETS["tiny"]

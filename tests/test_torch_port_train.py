@@ -34,7 +34,6 @@ import torch
 from image2video_synthesis_using_cinns_tpu import config as jcfg
 from image2video_synthesis_using_cinns_tpu.losses.flow_loss import flow_loss as jflow_loss
 from image2video_synthesis_using_cinns_tpu.models.stage2 import flow as jflow
-from image2video_synthesis_using_cinns_tpu.testing import make_model_dir
 from image2video_synthesis_using_cinns_tpu.train import optim as joptim
 from image2video_synthesis_using_cinns_tpu.train import stage2 as jstage2
 from image2video_synthesis_using_cinns_tpu_torch import config as tcfg
@@ -44,6 +43,7 @@ from image2video_synthesis_using_cinns_tpu_torch.train import optim as toptim
 from image2video_synthesis_using_cinns_tpu_torch.train import stage2 as tstage2
 from image2video_synthesis_using_cinns_tpu_torch.utils import convert
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from test_torch_port_model_dir import make_model_dir
 from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 C, E, H, NF, B = 16, 12, 32, 4, 8

@@ -46,7 +46,7 @@ import yaml
 
 from image2video_synthesis_using_cinns_tpu import config as jcfg
 from image2video_synthesis_using_cinns_tpu.models.facade import Model as JaxModel
-from image2video_synthesis_using_cinns_tpu.testing import make_bair_data_dir, make_model_dir
+from image2video_synthesis_using_cinns_tpu.testing import make_bair_data_dir
 from image2video_synthesis_using_cinns_tpu.train import stage2 as jstage2
 from image2video_synthesis_using_cinns_tpu_torch import config as tcfg
 from image2video_synthesis_using_cinns_tpu_torch.cli import train_stage2 as tcli
@@ -56,6 +56,7 @@ from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint as tckp
 from image2video_synthesis_using_cinns_tpu_torch.utils import convert
 from test_torch_port_train_augment import jax_draws
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from test_torch_port_model_dir import make_model_dir
 from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 LR = 1e-5  # the tiny preset's stage-2 config

@@ -30,7 +30,6 @@ from image2video_synthesis_using_cinns_tpu.models.stage1.resnet3d import Encoder
 from image2video_synthesis_using_cinns_tpu.models.stage2.resnet2d import ResnetEncoder as JRE
 from image2video_synthesis_using_cinns_tpu.testing import PRESETS as JAX_PRESETS
 from image2video_synthesis_using_cinns_tpu.testing import (
-    make_model_dir,
     stage1_config,
     stage2_ae_config,
 )
@@ -41,6 +40,7 @@ from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel
 from image2video_synthesis_using_cinns_tpu_torch.testing import PRESETS, build_model
 from image2video_synthesis_using_cinns_tpu_torch.utils.convert import to_state_dict
 from test_torch_port_stage1_step import two_threads  # noqa: F401
+from test_torch_port_model_dir import make_model_dir
 from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "tiny_transfer_v1.npz")
