@@ -204,6 +204,27 @@ Phases (any failure raises and the script exits non-zero):
    over its last 10 steps below its first 10; no flow chain. Prints each
    drive's set-up time and ms a step. The full-size curves run outside this
    script (``python -m ...cli.convergence_drive stage1 --steps 1000``).
+   4n. The serving CLIs from model directories: ``testing.make_model_dir``
+   writes a landscape, a BAIR and a BAIR control directory on the card
+   (each one's write time and bytes printed); in a temporary working
+   directory, with imageio blocked as on the card's machine, one counted
+   window runs ``generate_transfer.main`` (7 synthetic 17-frame 128 px
+   query directories, each against the first frames of all in batches of 6
+   and 1: 14 forward and 14 reverse chains), ``visualize_endpoint.main`` on
+   the control directory and 4g's split written out as PNGs (``-n_samples
+   6 -n_realiz 2``: 2 reverse chains at E = 94) and ``eval_diversity.main``
+   on the BAIR directory and 4c's diversity split as PNGs, with 4c's
+   backbones linked as ``./models`` (``-n_realiz 2``, VGG, I3D, DT-I3D: 6
+   reverse chains), each chain one device kernel. Checks: each transfer GIF
+   decodes with PIL to 17 frames of 8 tiled rows, and the frames the CLI
+   handed to its writer equal ``Model.transfer``'s on the same directory;
+   the endpoint GIFs and PNGs decode; the diversity scores finite and within
+   ``DIVERSITY_CLI_TOL`` of ``eval_diversity.evaluate`` on a ``Model`` of the
+   same directory and seed. Prints each CLI's wall time. Phases 4d, 4e, 4f
+   and 4l hold the trainers' per-epoch dumps the same way: a failed dump
+   fails the phase (``dumps_fail``, ``raise_dump_error``), and each phase
+   decodes the GIFs with their looped videos and the AE's recon grids that
+   its run wrote (``check_dumps``).
 5. Timings: each kernel's median ms beside its plain version and its bound;
    the reverse chain at B = 1, 6 and 16; where a chain's time goes, from the
    timeline build (per layer and pass, and the kernel's own span), and a
@@ -251,8 +272,8 @@ Phases (any failure raises and the script exits non-zero):
    the one process's arrays in memory instead of a file, and compares on
    the card; every check it made before stays, and the AE's whole fp64 run,
    reported before, is held.
-8. A ``{"kernels": [...]}`` line (launches summed over the sixteen counted
-   windows, 4m's the sixteenth), then the last line ``{"ok": true, "device":
+8. A ``{"kernels": [...]}`` line (launches summed over the seventeen counted
+   windows, 4n's the seventeenth), then the last line ``{"ok": true, "device":
    {...}}``.
 
 Exits non-zero without a result when no CUDA device is visible, and when the
@@ -261,6 +282,7 @@ port's package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import json
@@ -269,6 +291,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -1148,8 +1171,9 @@ def phase_train(card: str, tmp: Path, weights_root: str):
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
-    out = stage2.train(opt, models, loaders["train"], loaders["eval"], device=DEVICE,
-                       weights_root=weights_root)
+    with dumps_fail():
+        out = stage2.train(opt, models, loaders["train"], loaders["eval"], device=DEVICE,
+                           weights_root=weights_root)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, device_launches = dict(fk.launches), dict(fk.device_launches)
@@ -1268,6 +1292,7 @@ def phase_train(card: str, tmp: Path, weights_root: str):
           INVERSE_TOL)
 
     run = Path(out["save_path"])
+    check_dumps("train", run, gifs=[f"{e + 1:03d}_sequence_eval" for e in range(TRAIN_EPOCHS)])
     ckpts = {name: checkpoint.load(str(run / f"{name}.msgpack")) for name in ("cINN_latest", "cINN")}
     for name, payload in ckpts.items():
         fresh = SupervisedTransformer.from_configs(opt, config1.Decoder, ae)
@@ -1358,7 +1383,7 @@ def phase_train(card: str, tmp: Path, weights_root: str):
     evaluate_FVD_prior(loaders["eval"], aug_eval, network, decoder, z, opt, 0,
                        weights_root=weights_root,
                        residual=lambda i, shape: draws.prior(0, i, shape),
-                       on_dump_error=lambda e: None)  # no imageio on the card's machine
+                       on_dump_error=raise_dump_error)
     torch.cuda.synchronize()
     fvd_s = time.perf_counter() - t0
     log(f"  [{card}] validation pass ({n_eval} batches of {tr['bs_eval']}, forward kernel, "
@@ -1455,8 +1480,9 @@ def phase_train_stage1(card: str, tmp: Path, weights_root: str):
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
-    out = stage1.train(opt, models, loaders["train"], loaders["eval"], device=DEVICE,
-                       weights_root=weights_root)
+    with dumps_fail():
+        out = stage1.train(opt, models, loaders["train"], loaders["eval"], device=DEVICE,
+                           weights_root=weights_root)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, device_launches = dict(fk.launches), dict(fk.device_launches)
@@ -1576,6 +1602,8 @@ def phase_train_stage1(card: str, tmp: Path, weights_root: str):
 
     # -- the hand-off to serving and the checkpoints -----------------------------------
     run = Path(out["save_path"])
+    check_dumps("train s1", run, gifs=[f"{e + 1:03d}_sequence_{mode}" for e in range(S1_EPOCHS)
+                                       for mode in ("train", "eval")])
     eb = first_batch(loaders["eval"])
     eseq = aug_eval(torch.from_numpy(eb["seq_raw"]).to(DEVICE))
     e_eps = draws.normal("eval_posterior", 0, 0, 0, (eseq.shape[0], z))
@@ -1840,7 +1868,8 @@ def phase_train_ae(card: str, tmp: Path):
         torch.cuda.synchronize()
         zero_counts()
         t0 = time.perf_counter()
-        out = stage2_ae.train(opt, models, loaders["train"], loaders["eval"], device=DEVICE)
+        with dumps_fail():
+            out = stage2_ae.train(opt, models, loaders["train"], loaders["eval"], device=DEVICE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -2020,6 +2049,7 @@ def phase_train_ae(card: str, tmp: Path):
 
     # -- the written Encoder_stage2 in serving -------------------------------------------
     run = Path(out["save_path"])
+    check_dumps("train ae", run, images=[f"images/{e}_train_recon.jpg" for e in range(AE_EPOCHS)])
     ae = opt.AE
     x = aug_eval(torch.from_numpy(first_batch(loaders["eval"])["seq_raw"]).to(DEVICE))[:, 0]
     x = x.permute(0, 3, 1, 2).contiguous()
@@ -3190,8 +3220,9 @@ def phase_pipeline(card: str, tmp: Path, weights_root: str):
         torch.cuda.synchronize()
         zero_counts()
         t0 = time.perf_counter()
-        out = pipeline_drive.run_pipeline(str(root), preset=PRESET, device=DEVICE,
-                                          weights_root=weights_root)
+        with dumps_fail():
+            out = pipeline_drive.run_pipeline(str(root), preset=PRESET, device=DEVICE,
+                                              weights_root=weights_root)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -3209,6 +3240,9 @@ def phase_pipeline(card: str, tmp: Path, weights_root: str):
     log(f"  artifacts: stage 1 {Path(out['stage1']).name}, AE {Path(out['ae']).name}, cINN "
         f"{Path(out['stage2']).name}, GIF {Path(out['gif']).stat().st_size} bytes, video "
         f"{out['video_shape']}")
+    check_dumps("pipeline stage 1", Path(out["stage1"]),
+                gifs=["001_sequence_train", "001_sequence_eval"])
+    check_dumps("pipeline AE", Path(out["ae"]), images=["images/0_train_recon.jpg"])
     scores = out["eval"]
     expected = {"FID", "LPIPS"} | ({"DTFVD"} if T >= 16 else set()) | (
         {"FVD"} if n >= 16 else set())
@@ -3342,6 +3376,290 @@ def phase_convergence(card: str, tmp: Path):
     log(f"  stage2 NLL: first 10 steps {first:.3f}, last 10 {last:.3f}")
     if not last < first:
         raise AssertionError(f"convergence stage2: NLL {first:.3f} -> {last:.3f} did not fall")
+    return launches, device_launches
+
+
+# phase 4n, the serving CLIs from model directories: testing.make_model_dir writes
+# a landscape, a BAIR and a BAIR control directory on the card; generate_transfer
+# runs on a synthetic transfer split of CLI_QUERIES query directories of
+# QUERY_FRAMES 128 px PNGs (every query against the first frames of all, in the
+# CLI's batches of 6: a ragged last batch of 1), visualize_endpoint on 4g's
+# endpoint split and eval_diversity on 4c's diversity split (both written out
+# as PNGs from seeded_imread, so the CLIs read through the image codec), with
+# imageio blocked, as the card's machine has none
+CLI_QUERIES = 7
+CLI_ENDPOINT_SAMPLES, CLI_REALIZ = 6, 2
+# eval_diversity.main's scores against its body on a Model of the same
+# directory and seed over the same clips, relative: the same weights, inputs
+# and card, so only a library's choice of summation order could move them
+DIVERSITY_CLI_TOL = 1e-6
+
+
+def raise_dump_error(e: Exception) -> None:
+    """An ``on_dump_error`` that fails the run: a dump is best effort in the
+    trainers, but on the card it must work."""
+    raise e
+
+
+@contextlib.contextmanager
+def dumps_fail():
+    """Within: the trainers' once-a-run warning for a failed per-epoch dump
+    (GIF, looped video, recon grid) is an error, so a failed dump fails the
+    phase."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="per-epoch")
+        yield
+
+
+def check_dumps(label: str, run: Path, gifs=(), images=()) -> None:
+    """The per-epoch dumps of a trainer's run directory: each
+    ``videos/<base>.gif`` decoded with PIL beside its looped video
+    (``.mp4`` where imageio has an ffmpeg backend, else the MJPEG ``.avi``),
+    and each image decoded. A missing or unreadable file raises."""
+    from PIL import Image
+
+    found = []
+    for base in gifs:
+        gif = run / "videos" / f"{base}.gif"
+        with Image.open(gif) as im:
+            n = im.n_frames
+        video = [p for p in (gif.with_suffix(".mp4"), gif.with_suffix(".avi")) if p.is_file()]
+        if not video or video[0].stat().st_size == 0:
+            raise AssertionError(f"{label}: {gif.name} has no looped video beside it")
+        found.append(f"{gif.name} ({n} frames) and {video[0].name} "
+                     f"({video[0].stat().st_size} bytes)")
+    for name in images:
+        with Image.open(run / name) as im:
+            im.load()
+            found.append(f"{name} {im.size[0]}x{im.size[1]} {im.format}")
+    log(f"  {label} dumps: " + "; ".join(found))
+
+
+def write_split_pngs(split: Path) -> int:
+    """Each clip directory of a ``bair_split`` filled with its frames as
+    PNGs (``<k>.png``, ``seeded_imread``'s frames, lossless): what a CLI
+    reads through the image codec. Returns the count."""
+    from PIL import Image
+
+    n = 0
+    for clip in sorted(split.glob("test/traj_*/*")):
+        for k in range(BAIR_FRAMES):
+            path = clip / f"{k}.png"
+            Image.fromarray(seeded_imread(str(path))).save(path)
+            n += 1
+    return n
+
+
+def write_transfer_split(root: Path, n_queries: int, px: int) -> None:
+    """``<root>/<q>/<k>.png``: ``n_queries`` query videos of ``QUERY_FRAMES``
+    ``px`` frames, each a noise background and a square moving one step a
+    frame, drawn from the query's number."""
+    import numpy as np
+    from PIL import Image
+
+    for q in range(n_queries):
+        rng = np.random.default_rng(100 + q)
+        d = root / f"video_{q}"
+        d.mkdir(parents=True)
+        back = rng.integers(0, 90, (px, px, 3), dtype=np.uint8)
+        y0, x0 = rng.integers(0, px - 24, 2)
+        dy, dx = rng.integers(1, 4, 2) * rng.choice([-1, 1], 2)
+        colour = rng.integers(120, 256, 3, dtype=np.uint8)
+        for k in range(QUERY_FRAMES):
+            frame = back.copy()
+            y = int(np.clip(y0 + k * dy, 0, px - 24))
+            x = int(np.clip(x0 + k * dx, 0, px - 24))
+            frame[y:y + 24, x:x + 24] = colour
+            Image.fromarray(frame).save(d / f"{k}.png")
+
+
+def phase_serving_clis(card: str, tmp: Path):
+    """The serving CLIs through their ``main``s on directories that the
+    port's ``testing.make_model_dir`` writes on the card (each directory's
+    write time and bytes printed), with imageio blocked and a temporary
+    working directory holding the inputs and ``models`` (4c's backbones), in
+    one counted window: ``generate_transfer`` (landscape, ``-seq_length
+    17``: one forward and one reverse chain per batch of start frames),
+    ``visualize_endpoint`` (the control directory, E = 94, ``-n_samples 6
+    -n_realiz 2``) and ``eval_diversity`` (BAIR, ``-n_realiz 2 -VGG 1 -I3D
+    1 -DTI3D 1``), each chain one device kernel. Checks: each transfer GIF
+    decodes with PIL to 17 frames of the query's row and one row per start
+    frame, and the frames the CLI handed to its writer equal those of
+    ``Model.transfer`` on the same directory and inputs (the posterior mean:
+    deterministic); the endpoint GIFs and PNGs decode; the diversity scores
+    finite and within ``DIVERSITY_CLI_TOL`` of ``eval_diversity.evaluate``
+    on a ``Model`` of the same directory and seed. Prints each CLI's wall
+    time."""
+    import math
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from image2video_synthesis_using_cinns_tpu_torch.cli import (
+        eval_diversity,
+        generate_transfer,
+        visualize_endpoint,
+    )
+    from image2video_synthesis_using_cinns_tpu_torch.cli.generate_samples import (
+        IMG_SUFFIX,
+        read_frames,
+    )
+    from image2video_synthesis_using_cinns_tpu_torch.data import get_eval_loader
+    from image2video_synthesis_using_cinns_tpu_torch.data.loader import Loader
+    from image2video_synthesis_using_cinns_tpu_torch.metrics.streaming_eval import DiversityStream
+    from image2video_synthesis_using_cinns_tpu_torch.models.facade import Model
+    from image2video_synthesis_using_cinns_tpu_torch.ops.cuda import flow_kernel as fk
+    from image2video_synthesis_using_cinns_tpu_torch.testing import PRESETS, make_model_dir
+    from image2video_synthesis_using_cinns_tpu_torch.utils import video
+    from image2video_synthesis_using_cinns_tpu_torch.utils.seed import set_seed
+
+    work = tmp / "serving_clis"
+    (work / "dirs").mkdir(parents=True)
+    dirs = {}
+    for k, (name, preset, control) in enumerate((("landscape", TRANSFER_PRESET, False),
+                                                 ("bair", PRESET, False),
+                                                 ("bair_control", PRESET, True))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dirs[name] = make_model_dir(str(work / "dirs" / name), preset, seed=k, control=control,
+                                    device=DEVICE) + "/"
+        secs = time.perf_counter() - t0
+        size = sum(p.stat().st_size for p in (work / "dirs" / name).rglob("*") if p.is_file())
+        log(f"  [{card}] testing.make_model_dir {preset} control={control}: {secs:.2f} s, "
+            f"{size} bytes ({size / secs / 1e9:.2f} GB/s)")
+
+    t0 = time.perf_counter()
+    px = PRESETS[TRANSFER_PRESET]["img_size"]
+    write_transfer_split(work / "assets" / "GT_samples" / "landscape" / "transfer", CLI_QUERIES,
+                         px)
+    n_png = write_split_pngs(tmp / "diversity") + write_split_pngs(tmp / "bair_endpoint")
+    (work / "models").symlink_to(tmp / "models")  # 4c's backbones, where the CLIs look
+    log(f"  inputs written in {time.perf_counter() - t0:.2f} s: {CLI_QUERIES} transfer queries "
+        f"of {QUERY_FRAMES} {px} px PNGs; {n_png} PNGs of 4c's diversity and 4g's endpoint "
+        "splits")
+
+    n_batches = math.ceil(CLI_QUERIES / BATCH)
+    want = {"flow_forward_fused": CLI_QUERIES * n_batches,
+            "flow_reverse_fused": (CLI_QUERIES * n_batches
+                                   + CLI_REALIZ * math.ceil(CLI_ENDPOINT_SAMPLES / BATCH)
+                                   + CLI_REALIZ * math.ceil(DIVERSITY_CLIPS / BATCH))}
+    handed, scores = [], {}
+    write_gif, evaluate = video.write_gif, eval_diversity.evaluate
+
+    def recording_write_gif(path, frames, fps=3):
+        handed.append((os.path.basename(path), np.asarray(frames)))
+        write_gif(path, frames, fps)
+
+    def recording_evaluate(*a, **k):
+        scores.update(evaluate(*a, **k))
+        return scores
+
+    cwd, imageio = os.getcwd(), sys.modules.get("imageio")
+    walls = {}
+    video.write_gif, eval_diversity.evaluate = recording_write_gif, recording_evaluate
+    sys.modules["imageio"] = None  # the card's machine has no imageio: block one installed
+    os.chdir(work)
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        t_window = time.perf_counter()
+        for cli, args in (
+            (generate_transfer, ["-dataset", "landscape", "-ckpt_path", dirs["landscape"],
+                                 "-seq_length", str(QUERY_FRAMES)]),
+            (visualize_endpoint, ["-dataset", "bair", "-data_path", str(tmp / "bair_endpoint") + "/",
+                                  "-ckpt_path", dirs["bair_control"], "-seq_length", str(EVAL_SEQ),
+                                  "-n_samples", str(CLI_ENDPOINT_SAMPLES),
+                                  "-n_realiz", str(CLI_REALIZ), "-bs", str(BATCH)]),
+            (eval_diversity, ["-dataset", "bair", "-data_path", str(tmp / "diversity") + "/",
+                              "-ckpt_path", dirs["bair"], "-seq_length", str(EVAL_SEQ),
+                              "-bs", str(BATCH), "-n_realiz", str(CLI_REALIZ), "-VGG", "1",
+                              "-I3D", "1", "-DTI3D", "1"]),
+        ):
+            t0 = time.perf_counter()
+            cli.main(args + ["-device", DEVICE])
+            torch.cuda.synchronize()
+            walls[cli.__name__.rsplit(".", 1)[-1]] = time.perf_counter() - t0
+        wall = time.perf_counter() - t_window
+    finally:
+        os.chdir(cwd)
+        video.write_gif, eval_diversity.evaluate = write_gif, evaluate
+        if imageio is None:
+            sys.modules.pop("imageio", None)
+        else:
+            sys.modules["imageio"] = imageio
+    launches, device_launches = dict(fk.launches), dict(fk.device_launches)
+    log(f"  [{card}] the three mains in {wall:.2f} s: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
+    log(f"  serving-CLI chain launches: {launches}; device kernels they launched: "
+        f"{device_launches}; expected {want}")
+    if launches != want:
+        raise AssertionError(f"serving CLIs: chain launches {launches}, expected {want}")
+    if device_launches != launches:
+        raise AssertionError("serving CLIs: a chain launched other than one device kernel")
+
+    # -- generate_transfer: the GIFs, and the frames against Model.transfer -----------------
+    results = work / "assets" / "results"
+    transfer_gifs = [(n, f) for n, f in handed if n.startswith("transfer_")]
+    if [n for n, _ in transfer_gifs] != [f"transfer_{i}.gif" for i in range(CLI_QUERIES)]:
+        raise AssertionError(f"transfer: the CLI wrote {[n for n, _ in handed]}")
+    shape = (QUERY_FRAMES, px, (1 + CLI_QUERIES) * px, 3)  # the query's row, then one a start
+    for name, frames in transfer_gifs:
+        with Image.open(results / "landscape" / name) as gif:
+            n_frames, size = gif.n_frames, gif.size
+        if frames.shape != shape or (n_frames, size) != (shape[0], (shape[2], shape[1])):
+            raise AssertionError(f"transfer: {name} holds {n_frames} frames of {size}, handed "
+                                 f"{frames.shape}; expected {shape}")
+    qdir = work / "assets" / "GT_samples" / "landscape" / "transfer"
+    videos = []
+    for d in generate_transfer.natsorted(os.listdir(qdir)):
+        names = [str(p) for s in IMG_SUFFIX for p in (qdir / d).glob(f"*.{s}")]
+        videos.append(read_frames(generate_transfer.natsorted(names)[:QUERY_FRAMES], px))
+    videos = np.stack(videos)
+    model = Model(dirs["landscape"], QUERY_FRAMES, transfer=True, device=DEVICE)
+    gap = 0.0
+    with torch.no_grad():
+        for (name, frames), query in zip(transfer_gifs, videos):
+            rows = [model.transfer(query[None], videos[i * BATCH:(i + 1) * BATCH, 0]).cpu().numpy()
+                    for i in range(n_batches)]
+            rows = np.concatenate([query[None, :QUERY_FRAMES]] + rows, axis=0)
+            gap = max(gap, float(np.abs(video.convert_seq2gif(rows) - frames).max()))
+    log(f"  transfer: {CLI_QUERIES} GIFs of {shape[0]} frames {shape[2]}x{shape[1]} decoded; the "
+        f"frames handed to the writer against Model.transfer on the same directory: max "
+        f"|diff| {gap} {'ok' if gap == 0.0 else 'FAIL'}")
+    if gap != 0.0:
+        raise AssertionError("transfer: the CLI's frames are not Model.transfer's")
+    del model
+
+    # -- visualize_endpoint: its files -----------------------------------------------------
+    for idx in range(CLI_ENDPOINT_SAMPLES):
+        for ext in ("gif", "png"):
+            with Image.open(results / "bair_endpoint" / f"endpoint_{idx}.{ext}") as im:
+                im.load()
+                if im.size != (CLI_REALIZ * BAIR_PX, BAIR_PX):
+                    raise AssertionError(f"endpoint_{idx}.{ext} is {im.size}")
+    log(f"  endpoint: {CLI_ENDPOINT_SAMPLES} GIFs and PNGs of {CLI_REALIZ} realisations decoded")
+
+    # -- eval_diversity: the scores against the body on a Model of the same directory -------
+    if set(scores) != {"VGG", "I3D", "DTI3D"} or not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"diversity CLI: scores {scores}")
+    set_seed(249)
+    model = Model(dirs["bair"], EVAL_SEQ, seed=249, device=DEVICE)
+    dataset = get_eval_loader("bair", EVAL_SEQ, str(tmp / "diversity") + "/", model.config)
+    loader = Loader(dataset, BATCH, shuffle=False, drop_last=False, workers=8)
+    stream = DiversityStream(CLI_REALIZ, want_vgg=True, want_i3d=True, want_dti3d=True,
+                             seq_length=EVAL_SEQ, weights_root=str(tmp / "models"), device=DEVICE)
+    body = eval_diversity.evaluate(model, loader, stream, CLI_REALIZ)
+    rel = {k: abs(scores[k] - body[k]) / max(abs(body[k]), 1e-30) for k in body}
+    ok = set(body) == set(scores) and max(rel.values()) <= DIVERSITY_CLI_TOL
+    log(f"  diversity: CLI {scores}; body {body}; relative gaps {rel} (bound "
+        f"{DIVERSITY_CLI_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("diversity: the CLI's scores are not the body's")
+    del model, loader, stream
+    shutil.rmtree(work / "dirs")
     return launches, device_launches
 
 
@@ -4382,6 +4700,11 @@ def main() -> int:
         t0 = time.perf_counter()
         cv_launches, cv_device_launches = phase_convergence(card, Path(tmp))
         log(f"  phase 4m took {time.perf_counter() - t0:.2f} s")
+        log("== 4n. the serving CLIs from model directories (landscape and BAIR presets: "
+            "generate_transfer, visualize_endpoint, eval_diversity)")
+        t0 = time.perf_counter()
+        sc_launches, sc_device_launches = phase_serving_clis(card, Path(tmp))
+        log(f"  phase 4n took {time.perf_counter() - t0:.2f} s")
 
         log("== 5. timings")
         rows = phase_timings(card, models, x0, residual)
@@ -4422,7 +4745,7 @@ def main() -> int:
 
     # each kernel at the shape its path gives it, in that path's mode (bf16
     # weights): the reverse at the BAIR sampling path's B=6, E=64, the forward
-    # at the transfer's one query, B=1, E=128; launches over all sixteen windows;
+    # at the transfer's one query, B=1, E=128; launches over all seventeen windows;
     # beside them each in the training path's fp32-weight mode at B=10, E=64
     kernels = []
     for name, line, r, shape, err_key in (
@@ -4437,14 +4760,15 @@ def main() -> int:
             "launches": (launches[name] + t_launches[name] + e_launches[name] + tr_launches[name]
                          + s1_launches[name] + ae_launches[name] + ep_launches[name]
                          + ref_launches[name] + c_launches[name] + dp_launches[name]
-                         + sp_launches[name] + pl_launches[name] + cv_launches[name]),
+                         + sp_launches[name] + pl_launches[name] + cv_launches[name]
+                         + sc_launches[name]),
             "device_launches": (device_launches[name] + t_device_launches[name]
                                 + e_device_launches[name] + tr_device_launches[name]
                                 + s1_device_launches[name] + ae_device_launches[name]
                                 + ep_device_launches[name] + ref_device_launches[name]
                                 + c_device_launches[name] + dp_device_launches[name]
                                 + sp_device_launches[name] + pl_device_launches[name]
-                                + cv_device_launches[name]),
+                                + cv_device_launches[name] + sc_device_launches[name]),
             "shape": f"{shape} hidden 512 20 blocks, bf16 weights",
             "max_abs_err": errs[err_key],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -43,8 +43,6 @@ def main(argv: list[str] | None = None) -> None:
         parser.error("Only implemented for landscape")
     serving = serving_options(args)
 
-    import imageio
-
     from ..models.facade import Model
     from ..utils import video as vid
 
@@ -71,7 +69,7 @@ def main(argv: list[str] | None = None) -> None:
         transfer = np.concatenate(rows, axis=0)
         transfer = np.concatenate((query[None, : transfer.shape[1]], transfer), axis=0)
         gif = vid.convert_seq2gif(transfer)
-        imageio.mimsave(save_path + f"transfer_{idx}.gif", gif.astype(np.uint8), fps=3)
+        vid.write_gif(save_path + f"transfer_{idx}.gif", gif, fps=3)
     print(f"Animations saved in {save_path}")
 
 

@@ -53,19 +53,15 @@ def generate(model, loader, n_realiz: int, n_samples: int) -> torch.Tensor:
 def write(videos: np.ndarray, save_path: str = SAVE_PATH) -> None:
     """One GIF of each video's realisations side by side, and a PNG of
     their last frames."""
-    import imageio
-
     from ..utils import video as vid
 
     os.makedirs(save_path, exist_ok=True)
     for idx, v in enumerate(videos):
         gif = vid.convert_seq2gif(v)
-        imageio.mimsave(os.path.join(save_path, f"endpoint_{idx}.gif"), gif.astype(np.uint8),
-                        fps=3)
+        vid.write_gif(os.path.join(save_path, f"endpoint_{idx}.gif"), gif, fps=3)
         last = np.transpose(v[:, -1], (0, 2, 3, 1))
         grid = np.concatenate(list(np.clip((last + 1) / 2, 0, 1)), axis=1)
-        imageio.imwrite(os.path.join(save_path, f"endpoint_{idx}.png"),
-                        (grid * 255).astype(np.uint8))
+        vid.write_image(os.path.join(save_path, f"endpoint_{idx}.png"), grid * 255)
 
 
 def main(argv: list[str] | None = None) -> None:

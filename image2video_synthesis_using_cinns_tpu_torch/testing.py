@@ -30,7 +30,7 @@ import torch
 
 from . import config as cfg
 from .config import Config
-from .models.facade import Model
+from .models.facade import Model, resolve_device
 from .utils import convert
 
 PRESETS = {
@@ -399,6 +399,100 @@ def stage2_config(p: dict, stage1_path: str, ae_path: str, control: bool = False
         },
         "Logging": {"entity": None, "project": None, "mode": "disabled"},
     })
+
+
+def _random_state(module_fn, gen: torch.Generator, device: torch.device) -> dict:
+    """A random state dict for the module that ``module_fn()`` builds, its
+    keys and shapes taken from a build on the meta device, every value drawn
+    on ``device`` from ``gen`` in key order: a weight of two or more axes
+    and its bias from U(-1/sqrt(fan_in), +1/sqrt(fan_in)), as torch's layers
+    draw them (the flow's stacked layers (n, out, in) have fan_in = in);
+    a norm's per-channel weight 1 and its bias 0; ActNorm ``loc`` 0 and
+    ``scale`` 1; running statistics 0 and 1; spectral vectors ``u``/``v``
+    unit normals; each block's shuffle a random permutation beside its
+    inverse."""
+    with torch.device("meta"):
+        shapes = {k: (tuple(t.shape), t.dtype) for k, t in module_fn().state_dict().items()}
+
+    def uniform(shape, fan_in):
+        bound = 1.0 / fan_in ** 0.5
+        return torch.empty(shape, device=device).uniform_(-bound, bound, generator=gen)
+
+    out: dict[str, torch.Tensor] = {}
+    for key, (shape, dtype) in shapes.items():
+        prefix, _, name = key.rpartition(".")
+        weight = shapes.get(f"{prefix}.weight", ((), None))[0]
+        if len(weight) < 2:
+            fan_in = 0
+        else:
+            fan_in = weight[-1] if ".coupling." in key else int(np.prod(weight[1:]))
+        if name in ("weight", "bias") and fan_in:
+            out[key] = uniform(shape, fan_in)
+        elif name in ("weight", "scale", "var"):
+            out[key] = torch.ones(shape, device=device)
+        elif name in ("bias", "loc", "mean"):
+            out[key] = torch.zeros(shape, device=device)
+        elif name in ("u", "v"):
+            u = torch.randn(shape, device=device, generator=gen)
+            out[key] = u / torch.linalg.vector_norm(u)
+        elif name == "fwd":
+            out[key] = torch.stack([torch.randperm(shape[1], device=device, generator=gen)
+                                    for _ in range(shape[0])]).to(dtype)
+        elif name == "inv":
+            out[key] = torch.argsort(out[f"{prefix}.fwd"], dim=1).to(dtype)
+        else:
+            raise ValueError(f"{key}: no rule to draw this leaf")
+    return out
+
+
+def make_model_dir(root: str, preset: str = "tiny", seed: int = 0, control: bool = False,
+                   device: str | torch.device | None = None) -> str:
+    """The chained model directory that ``Model`` and the serving CLIs read,
+    with random weights: ``stage1/`` (``config_stage1.yaml``,
+    ``best_PFVD_{GEN,ENC}.msgpack``), ``AE/`` (``config_stage2_AE.yaml``,
+    ``Encoder_stage2.msgpack``) and ``stage2/`` (``config_stage2.yaml``,
+    chained to the other two, and ``cINN.msgpack``), as the JAX package's
+    ``testing.make_model_dir`` writes them: the same configs, and
+    checkpoints in the JAX variables layout, so that either package's
+    ``Model`` serves the directory. The trainable decoder keeps its raw
+    weights and spectral vectors, as a trainer saves it.
+
+    The weights are drawn on ``device`` (the card unless ``device="cpu"``)
+    from one ``torch.Generator`` per network, seeded from ``seed``
+    (``_random_state``), so a full-size directory takes seconds to build;
+    the values depend on the device's generator. Returns the stage-2
+    directory."""
+    from .models.stage1.decoder import Generator
+    from .models.stage1.resnet3d import Encoder
+    from .models.stage2.inn import SupervisedTransformer
+    from .models.stage2.resnet2d import ResnetEncoder
+    from .utils import checkpoint as ckpt_io
+
+    device = resolve_device(device)
+    p = PRESETS[preset]
+    dirs = {name: os.path.join(root, name) for name in ("stage1", "AE", "stage2")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    s1_cfg = stage1_config(p)
+    ae_cfg = stage2_ae_config(p)
+    s2_cfg = stage2_config(p, dirs["stage1"], dirs["AE"], control)
+    cfg.save(s1_cfg, os.path.join(dirs["stage1"], "config_stage1.yaml"))
+    cfg.save(ae_cfg, os.path.join(dirs["AE"], "config_stage2_AE.yaml"))
+    cfg.save(s2_cfg, os.path.join(dirs["stage2"], "config_stage2.yaml"))
+
+    networks = (
+        ("stage1", "best_PFVD_GEN", {"epoch": 0},
+         lambda: Generator.from_config(s1_cfg.Decoder, trainable=True)),
+        ("stage1", "best_PFVD_ENC", {"epoch": 0}, lambda: Encoder.from_config(s1_cfg.Encoder)),
+        ("AE", "Encoder_stage2", {}, lambda: ResnetEncoder.from_config(ae_cfg.AE)),
+        ("stage2", "cINN", {},
+         lambda: SupervisedTransformer.from_configs(s2_cfg, s1_cfg.Decoder, ae_cfg.AE)),
+    )
+    for k, (d, name, extra, build) in enumerate(networks):
+        gen = torch.Generator(device=device).manual_seed(4 * seed + k)
+        tree = convert.to_variables(_random_state(build, gen, device))
+        ckpt_io.save(os.path.join(dirs[d], f"{name}.msgpack"), dict(extra, state_dict=tree))
+    return dirs["stage2"]
 
 
 def make_bair_data_dir(root: str, n_videos: int = 2, img: int = 32,

@@ -10,9 +10,10 @@ decoded from the batch's first frame. I3D activations of the generated clips
 and of the real frames after the first are streamed on the device
 (``metrics/fvd.py``); the score is their Fréchet distance. A missing I3D
 file raises ``FileNotFoundError``. Ten sampled clips, picked among the first
-40, are written beside the real ones as a GIF; that dump is best effort, as
-in the JAX package (``imageio`` may be missing), and its failure goes to
-``on_dump_error`` (a warning by default).
+40, are written beside the real ones as a GIF and a looped video
+(``utils/video.plot_vid``, with imageio or PIL); that dump is best effort,
+as in the JAX package, and its failure goes to ``on_dump_error`` (a warning
+by default).
 
 ``evaluate_FVD_posterior`` reconstructs each augmented eval batch: the
 encoder's posterior sample of frames 1: with one fixed eps (the caller's

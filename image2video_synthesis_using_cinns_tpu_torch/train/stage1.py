@@ -273,7 +273,7 @@ def train(opt, models: Stage1Models, train_loader, eval_loader, *, device=None,
             from ..utils.video import plot_vid
 
             wandb_sink.log_video(f"{mode}_video", plot_vid(opt, sequences, epoch, mode=mode))
-        except Exception as e:  # the GIF dump is best effort: imageio may be missing
+        except Exception as e:  # the GIF dump is best effort, as in the JAX package
             if not dump_warned:
                 warnings.warn(f"per-epoch video dump failed (reported once a run): {e!r}")
                 dump_warned.append(e)

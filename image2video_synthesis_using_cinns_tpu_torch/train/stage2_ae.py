@@ -93,6 +93,7 @@ from ..parallel import distributed
 from ..utils import checkpoint as ckpt_io
 from ..utils import convert
 from ..utils.logging import CSVlogger, Logging, WandbSink
+from ..utils.video import write_image
 from . import stage1, stage2
 from .optim import Adam, LRController, set_lr
 from .stage1_step import backward_into
@@ -301,10 +302,8 @@ def train(opt, models: AEModels, train_loader, eval_loader, *, device=None,
         grid = recon_grid(*pair)
         wandb_sink.log_image("images_train", grid, caption="Reconstructions")
         try:
-            import imageio
-
-            imageio.imwrite(os.path.join(save_path, "images", f"{epoch}_train_recon.jpg"), grid)
-        except Exception as e:  # the recon grid is best effort: imageio may be missing
+            write_image(os.path.join(save_path, "images", f"{epoch}_train_recon.jpg"), grid)
+        except Exception as e:  # the recon grid is best effort, as in the JAX package
             if not dump_warned:
                 warnings.warn(f"per-epoch recon grid failed (reported once a run): {e!r}")
                 dump_warned.append(e)

@@ -74,7 +74,7 @@ class _Reader:
         if b in (0xC7, 0xC8, 0xC9):
             n = self.unpack({0xC7: ">B", 0xC8: ">H", 0xC9: ">I"}[b])
             code = self.unpack(">b")
-            return _ext(code, bytes(self.take(n)))
+            return _ext(code, self.take(n))
         if b == 0xCA:
             return self.unpack(">f")
         if b == 0xCB:
@@ -86,7 +86,7 @@ class _Reader:
             )
         if 0xD4 <= b <= 0xD8:
             code = self.unpack(">b")
-            return _ext(code, bytes(self.take(1 << (b - 0xD4))))
+            return _ext(code, self.take(1 << (b - 0xD4)))
         if b in (0xD9, 0xDA, 0xDB):
             return self.str(self.unpack({0xD9: ">B", 0xDA: ">H", 0xDB: ">I"}[b]))
         if b in (0xDC, 0xDD):
@@ -114,15 +114,25 @@ def _dtype(name: str) -> np.dtype:
     return np.dtype(np.uint16) if name == "bfloat16" else np.dtype(name)
 
 
-def _ndarray(payload: bytes) -> np.ndarray:
-    shape, name, raw = unpackb(payload)
+def _ndarray(payload) -> np.ndarray:
+    # [shape, dtype name, bin]: the bin read in place, its bytes copied once below
+    r = _Reader(payload)
+    if r.take(1)[0] != 0x93:
+        raise ValueError("an ndarray payload is [shape, dtype name, data]")
+    shape, name = r.value(), r.value()
+    fmt = {0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}.get(r.take(1)[0])
+    if fmt is None:
+        raise ValueError("an ndarray payload's data is not bin")
+    raw = r.take(r.unpack(fmt))
+    if r.pos != len(r.buf):
+        raise ValueError("trailing bytes after an ndarray payload")
     arr = np.frombuffer(raw, dtype=_dtype(name)).reshape(shape, order="C")
     if name == "bfloat16":
         arr = (arr.astype(np.uint32) << 16).view(np.float32)
     return arr.copy()  # writable, owns its memory
 
 
-def _ext(code: int, payload: bytes) -> Any:
+def _ext(code: int, payload) -> Any:
     if code == _EXT_NDARRAY:
         return _ndarray(payload)
     raise ValueError(f"unsupported msgpack extension code {code}")
@@ -207,15 +217,21 @@ def _pack(out: bytearray, v: Any) -> None:
             _pack(out, k)
             _pack(out, x)
     elif isinstance(v, _Leaf):
-        payload = bytearray()
-        _pack(payload, [list(v.array.shape), v.name, v.array.tobytes("C")])
-        n = len(payload)
+        # the payload [shape, dtype name, raw C-order bytes], its bytes copied once
+        data = memoryview(np.ascontiguousarray(v.array).reshape(-1)).cast("B")
+        head = bytearray([0x93])
+        _pack(head, list(v.array.shape))
+        _pack(head, v.name)
+        _pack_len(head, data.nbytes, None, 0, (0xC4, 0xC5, 0xC6))
+        n = len(head) + data.nbytes
         fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
         if n in fixext:
             out.append(fixext[n])
         else:
             _pack_len(out, n, None, 0, (0xC7, 0xC8, 0xC9))
-        out += struct.pack(">b", _EXT_NDARRAY) + payload
+        out += struct.pack(">b", _EXT_NDARRAY)
+        out += head
+        out += data
     else:
         raise TypeError(f"cannot serialise {type(v).__name__}")
 
@@ -262,11 +278,11 @@ def _to_state(v: Any) -> Any:
             "chunks": {str(i): c for i, c in enumerate(chunks)}}
 
 
-def packb(tree: Any) -> bytes:
+def packb(tree: Any) -> bytearray:
     """Encode one tree of dicts, lists, scalars and arrays as msgpack bytes."""
     out = bytearray()
     _pack(out, tree)
-    return bytes(out)
+    return out
 
 
 def save(path: str, payload: dict) -> None:

@@ -76,9 +76,10 @@ def _tensor(a: Any) -> torch.Tensor:
 
 def torch_weight(kernel: np.ndarray) -> torch.Tensor:
     """JAX kernel -> torch weight: (*k, in, out) -> (out, in, *k); (in, out) -> (out, in)."""
-    k = np.asarray(kernel, dtype=np.float32)
-    order = (k.ndim - 1, k.ndim - 2) + tuple(range(k.ndim - 2))
-    return _tensor(np.transpose(k, order))
+    a = np.asarray(kernel, dtype=np.float32)
+    k = torch.from_numpy(a if a.flags.writeable else a.copy())
+    return k.permute(k.dim() - 1, k.dim() - 2, *range(k.dim() - 2)).clone(
+        memory_format=torch.contiguous_format)
 
 
 def _key(path: tuple, name: str) -> str:
@@ -166,18 +167,20 @@ def to_variables(state_dict: dict[str, torch.Tensor]) -> dict:
     trees: dict = {"params": {}}
     for key, t in state_dict.items():
         *path, name = key.split(".")
-        t = t.detach().cpu()
-        a = (t.float() if t.is_floating_point() else t).numpy().copy()
+        t = t.detach()
+        t = t.float() if t.is_floating_point() else t
+        if name == "weight" and t.dim() >= 2:  # the layout change, on the tensor's device
+            t = t.transpose(-1, -2) if "coupling" in path else t.permute(*range(2, t.dim()), 1, 0)
+        a = t.to("cpu", copy=True, memory_format=torch.contiguous_format).numpy()
         node = trees.setdefault(_COLLECTION_OF.get(name, "params"), {})
         for p in path:
             node = node.setdefault(p, {})
         if name in ("fwd", "inv"):
             node[name] = a.astype(np.int32)
         elif "coupling" in path and name in ("weight", "bias"):
-            node["w" if name == "weight" else "b"] = (
-                np.ascontiguousarray(np.swapaxes(a, -1, -2)) if name == "weight" else a)
-        elif name == "weight" and a.ndim >= 2:  # (out, in, *k) -> (*k, in, out)
-            node["kernel"] = np.ascontiguousarray(np.transpose(a, tuple(range(2, a.ndim)) + (1, 0)))
+            node["w" if name == "weight" else "b"] = a
+        elif name == "weight" and a.ndim >= 2:
+            node["kernel"] = a
         elif name == "weight" and a.ndim == 1:
             node["scale"] = a
         elif name in ("bias", "loc", "scale", "u", "v", "mean", "var") + _PLAIN_LEAVES:

@@ -1,7 +1,12 @@
 """Video export (port of ``utils/video.py``): ``denorm``, ``convert_seq2gif``,
-``write_gif``, ``save_video`` and the MJPEG AVI writer and reader it falls
-back on, and the trainers' ``plot_vid``. Sequences are numpy arrays (or CPU
-tensors) in the layout the facade returns, (B, T, C, H, W) in [-1, 1].
+``write_gif``, ``write_image``, ``save_video`` and the MJPEG AVI writer and
+reader it falls back on, and the trainers' ``plot_vid``. Sequences are numpy
+arrays (or CPU tensors) in the layout the facade returns, (B, T, C, H, W) in
+[-1, 1].
+
+Every writer calls ``imageio`` where it is installed, as the JAX package
+does, and writes with PIL alone where it is not: a GIF through PIL's GIF
+writer, an image in the format its suffix names, a video as an MJPEG AVI.
 ``imageio`` and PIL are imported only where a file is written or read."""
 
 from __future__ import annotations
@@ -44,16 +49,31 @@ def write_gif(path: str, frames, fps: int = 3) -> None:
     imageio.mimsave(path, frames, fps=fps)
 
 
+def write_image(path: str, image) -> None:
+    """One (H, W, 3) image as uint8: ``imageio.imwrite`` where imageio is
+    installed, else PIL, in the format the suffix names (``.png``, ``.jpg``)."""
+    image = np.asarray(image).astype(np.uint8)
+    try:
+        import imageio
+    except ImportError:
+        from PIL import Image
+
+        Image.fromarray(image).save(path)
+        return
+    imageio.imwrite(path, image)
+
+
 def save_video(path: str, video: np.ndarray, fps: int = 3, loops: int = 6) -> None:
     """Looped video export (reference ``utils/auxiliaries.py:25-30`` writes a
     6x-looped mp4 next to every GIF). mp4 needs an ffmpeg imageio backend;
     without one we still always produce a real video artifact by writing a
     pure-Python MJPEG AVI next to the requested path (every mainstream player
-    decodes MJPEG; no external codec binary involved)."""
+    decodes MJPEG; no external codec binary involved), also where imageio
+    itself is missing."""
     long_video = np.tile(video, (loops, 1, 1, 1)).astype(np.uint8)
-    import imageio
-
     try:
+        import imageio
+
         writer = imageio.get_writer(path, fps=fps)
     except (ValueError, ImportError):
         write_mjpeg_avi(os.path.splitext(path)[0] + ".avi", long_video, fps=fps)
@@ -69,8 +89,6 @@ def plot_vid(opt, sequences, epoch: int = 0, mode: str = "train", path: str | No
     next to each other, crop to a multiple of 16 px, write a GIF and a
     looped video under ``<save_path>/videos/`` (or ``path``), and return the
     frames as (T, C, H, W) uint8."""
-    import imageio
-
     sequence_gen, sequence_orig = sequences
     seq = np.concatenate((convert_seq2gif(sequence_gen), convert_seq2gif(sequence_orig)),
                          axis=axis)
@@ -78,11 +96,10 @@ def plot_vid(opt, sequences, epoch: int = 0, mode: str = "train", path: str | No
     seq = seq[:, :x, :y]
     if path is None:
         base = os.path.join(opt.Training["save_path"], "videos", f"{epoch + 1:03d}_sequence_{mode}")
-        imageio.mimsave(base + ".gif", seq.astype(np.uint8), fps=3)
-        save_video(base + ".mp4", seq)
     else:
-        imageio.mimsave(path + "seq.gif", seq.astype(np.uint8), fps=3)
-        save_video(path + "seq.mp4", seq)
+        base = path + "seq"
+    write_gif(base + ".gif", seq, fps=3)
+    save_video(base + ".mp4", seq)
     return seq.astype(np.uint8).transpose(0, 3, 1, 2)
 
 

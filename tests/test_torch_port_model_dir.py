@@ -11,6 +11,10 @@ as ``make_model_dir(root)`` writes them. Outside xdist it calls
 ``make_model_dir``. Its tests use a stand-in builder, so they compile nothing.
 
     from test_torch_port_model_dir import make_model_dir
+
+The port's own ``testing.make_model_dir`` is held to that fixture here: the
+same files, configs and checkpoint layout, and both packages' ``Model``s
+serve what it writes alike.
 """
 
 import fcntl
@@ -19,6 +23,10 @@ import shutil
 import tempfile
 from pathlib import Path
 
+import numpy as np
+import pytest
+
+from test_torch_port_stage1_step import two_threads  # noqa: F401
 from torch_port_tmp import tmp_path, tmp_path_factory  # noqa: F401
 
 
@@ -102,3 +110,70 @@ def test_outside_xdist_it_builds_in_place(monkeypatch):
         assert make_model_dir(root, seed=3) == str(root / "stage2")
         assert calls == [(str(root), "tiny", 3, False)]
         assert sorted(os.listdir(tmp)) == ["ckpt"]
+
+
+# -- the port's own make_model_dir against the JAX fixture -----------------------------------------
+
+def _tree(payload) -> dict:
+    """{path: (shape, dtype)} of a checkpoint's leaves, and its other keys."""
+    out = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                out["/".join(path + (k,))] = (np.shape(v), np.asarray(v).dtype)
+
+    walk(payload["state_dict"], ())
+    return out, {k: v for k, v in payload.items() if k != "state_dict"}
+
+
+def _files(root: Path) -> list:
+    return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file())
+
+
+@pytest.mark.parametrize("control", [False, True], ids=["plain", "control"])
+def test_port_make_model_dir_matches_jax(control, tmp_path):
+    """The port's ``testing.make_model_dir`` writes the JAX fixture's
+    directory: the same files, equal configs (the chained paths naming each
+    its own root), and every checkpoint's tree paths, shapes and dtypes."""
+    from image2video_synthesis_using_cinns_tpu_torch import config as tcfg
+    from image2video_synthesis_using_cinns_tpu_torch import testing as ttesting
+    from image2video_synthesis_using_cinns_tpu_torch.utils import checkpoint
+
+    jax_root, port_root = tmp_path / "jax", tmp_path / "port"
+    make_model_dir(jax_root, "tiny", seed=0, control=control)
+    got = ttesting.make_model_dir(str(port_root), "tiny", seed=0, control=control, device="cpu")
+    assert got == str(port_root / "stage2")
+    assert _files(port_root) == _files(jax_root) == [
+        "AE/Encoder_stage2.msgpack", "AE/config_stage2_AE.yaml", "stage1/best_PFVD_ENC.msgpack",
+        "stage1/best_PFVD_GEN.msgpack", "stage1/config_stage1.yaml", "stage2/cINN.msgpack",
+        "stage2/config_stage2.yaml"]
+    for name in _files(port_root):
+        if name.endswith(".yaml"):
+            want = tcfg.loads((jax_root / name).read_text().replace(str(jax_root), str(port_root)))
+            assert tcfg.load(port_root / name).to_dict() == want.to_dict(), name
+        else:
+            assert (_tree(checkpoint.load(str(port_root / name)))
+                    == _tree(checkpoint.load(str(jax_root / name)))), name
+
+
+def test_both_models_serve_the_port_written_dir(tmp_path):
+    """The JAX ``Model`` (plain flow) and the port's (plain flow) on the
+    directory the port writes: the same video for one x0 and residual, to
+    1e-4 (the bound of ``test_torch_port_model.py``)."""
+    from image2video_synthesis_using_cinns_tpu.models.facade import Model as JaxModel
+    from image2video_synthesis_using_cinns_tpu_torch import testing as ttesting
+    from image2video_synthesis_using_cinns_tpu_torch.models.facade import Model
+
+    d = ttesting.make_model_dir(str(tmp_path), "tiny", seed=5, device="cpu") + "/"
+    rng = np.random.default_rng(13)
+    x0 = rng.uniform(-1, 1, (2, 3, 32, 32)).astype(np.float32)
+    residual = rng.standard_normal((2, 16)).astype(np.float32)
+    want = np.asarray(JaxModel(d, vid_length=8, use_pallas=False).forward(x0, residual=residual))
+    got = Model(d, vid_length=8, use_kernel=False, device="cpu").forward(
+        x0, residual=residual).numpy()
+    assert got.shape == want.shape == (2, 8, 3, 32, 32)
+    assert np.isfinite(got).all() and np.abs(got).max() <= 1
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
