@@ -31,6 +31,7 @@ from typing import Callable
 import torch
 
 from ..ops.resize import resize_bilinear
+from ..utils.profiling import annotate
 
 COLOUR_OPS = ("brightness", "contrast", "saturation", "hue")
 CROP_RANGE = 17  # crop offsets are drawn from [0, CROP_RANGE)
@@ -142,6 +143,12 @@ def _resize(x: torch.Tensor, size: int) -> torch.Tensor:
 def apply_augment(batch_u8, img_size: int, params: dict, random_crop: bool,
                   draws: dict[str, torch.Tensor]) -> torch.Tensor:
     """The train transform with the per-clip ``draws`` of ``draw_augment``."""
+    with annotate("data/augment"):
+        return _apply_augment(batch_u8, img_size, params, random_crop, draws)
+
+
+def _apply_augment(batch_u8, img_size: int, params: dict, random_crop: bool,
+                   draws: dict[str, torch.Tensor]) -> torch.Tensor:
     x = torch.as_tensor(batch_u8).to(torch.float32) / 255.0
     dev = x.device
     x = _resize(x, img_size + 16 if random_crop else img_size)

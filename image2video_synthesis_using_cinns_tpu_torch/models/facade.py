@@ -62,6 +62,7 @@ from ..parallel import spatial
 from ..parallel.mesh import make_2d_mesh, make_mesh, pad_to_multiple, replicate, shard_batch
 from ..utils import checkpoint as ckpt_io
 from ..utils import convert
+from ..utils.profiling import annotate
 from .stage1.decoder import Generator
 from .stage1.resnet3d import Encoder
 from .stage2.inn import SupervisedTransformer
@@ -220,7 +221,8 @@ class Model:
         decoder = rep.decoder
 
         def decode(img):
-            return spatial.gather(decoder(img.to(dt), z.to(dt), rep.peers)).float()
+            with annotate("model/decode"):
+                return spatial.gather(decoder(img.to(dt), z.to(dt), rep.peers)).float()
 
         seq = decode(x0)  # (B, 3, T, H, W)
         n_repeats = max(0, -(-self.vid_length // decoder.base_frames) - 1)
@@ -250,18 +252,20 @@ class Model:
 
         ``residual`` injects a recorded nu (fixed-seed parity tests); by
         default nu is drawn from the model's generator."""
-        x0 = _as_tensor(x_0, self.device)
-        if residual is None:
-            residual = self.draw_residual(x0.shape[0])  # the whole batch's, on the first device
-        residual = _as_tensor(residual, self.device)
-        cond = None if cond is None else _as_tensor(cond, self.device)
+        with annotate("model/sample"):
+            x0 = _as_tensor(x_0, self.device)
+            if residual is None:
+                # the whole batch's, on the first device
+                residual = self.draw_residual(x0.shape[0])
+            residual = _as_tensor(residual, self.device)
+            cond = None if cond is None else _as_tensor(cond, self.device)
 
-        def run(rep: Replica, x0, residual, cond):
-            conds = [x0] if cond is None else [x0, cond]
-            z = rep.flow.reverse(residual, conds).reshape(x0.shape[0], -1)
-            return self._render(rep, x0, z), z
+            def run(rep: Replica, x0, residual, cond):
+                conds = [x0] if cond is None else [x0, cond]
+                z = rep.flow.reverse(residual, conds).reshape(x0.shape[0], -1)
+                return self._render(rep, x0, z), z
 
-        return self._on_replicas(run, x0, residual, cond)
+            return self._on_replicas(run, x0, residual, cond)
 
     def forward(self, x_0, cond=None, residual=None) -> torch.Tensor:
         """x_0: (B, C, H, W) in [-1, 1] -> video (B, T, C, H, W) in [-1, 1]."""
@@ -281,19 +285,22 @@ class Model:
         that nu is sampled under every start frame."""
         if self.encoder is None:
             raise RuntimeError("construct the Model with transfer=True")
-        q = _as_tensor(seq_query, self.device)
-        if q.dim() != 5 or q.shape[0] != 1:
-            raise ValueError(f"expected one query video (1, T, C, H, W), got {tuple(q.shape)}")
-        x0 = _as_tensor(x_0, self.device)
-        _, mu, _ = self.encoder(q[:, 1:].permute(0, 2, 1, 3, 4), self._generator)
-        nu, _ = self.flow(mu, [q[:, 0]])
-        nu = nu.reshape(1, -1).repeat(x0.shape[0], 1)
+        with annotate("model/transfer"):
+            q = _as_tensor(seq_query, self.device)
+            if q.dim() != 5 or q.shape[0] != 1:
+                raise ValueError(
+                    f"expected one query video (1, T, C, H, W), got {tuple(q.shape)}")
+            x0 = _as_tensor(x_0, self.device)
+            with annotate("model/encode"):
+                _, mu, _ = self.encoder(q[:, 1:].permute(0, 2, 1, 3, 4), self._generator)
+            nu, _ = self.flow(mu, [q[:, 0]])
+            nu = nu.reshape(1, -1).repeat(x0.shape[0], 1)
 
-        def run(rep: Replica, x0, nu):
-            z_ref = rep.flow.reverse(nu, [x0]).reshape(x0.shape[0], -1)
-            return self._render(rep, x0, z_ref), z_ref
+            def run(rep: Replica, x0, nu):
+                z_ref = rep.flow.reverse(nu, [x0]).reshape(x0.shape[0], -1)
+                return self._render(rep, x0, z_ref), z_ref
 
-        return self._on_replicas(run, x0, nu)
+            return self._on_replicas(run, x0, nu)
 
     def transfer(self, seq_query, x_0) -> torch.Tensor:
         """seq_query (1, T, C, H, W), x_0 (N, C, H, W) -> video (N, T', C, H, W)."""

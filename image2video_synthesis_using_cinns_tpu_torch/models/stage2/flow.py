@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from ...ops.cuda import flow_kernel
 from ...parallel import distributed, tp
+from ...utils.profiling import annotate
 
 LRELU_SLOPE = flow_kernel.LRELU_SLOPE
 INV_LRELU_ALPHA = flow_kernel.INV_LRELU_ALPHA
@@ -227,14 +228,17 @@ class ConditionalFlow(nn.Module):
         ``MAX_BATCH`` rows a launch; the plain flow at a depth the kernel
         does not take, as the JAX package falls back to its scan."""
         if not self.kernel_depth:
-            return self.plain(x, embedding, reverse)
+            with annotate("model/chain"):
+                return self.plain(x, embedding, reverse)
         if self.packed is None:
             raise RuntimeError("call pack_kernel_weights() after loading the flow's weights")
         fused = flow_kernel.flow_reverse_fused if reverse else flow_kernel.flow_forward_fused
         x, embedding = x.contiguous(), embedding.contiguous()
         m = flow_kernel.MAX_BATCH  # the kernel takes at most m rows a call
-        outs = [fused(self.packed, x[i:i + m], embedding[i:i + m])
-                for i in range(0, x.shape[0], m)]
+        outs = []
+        for i in range(0, x.shape[0], m):
+            with annotate("model/chain"):
+                outs.append(fused(self.packed, x[i:i + m], embedding[i:i + m]))
         if reverse:
             return torch.cat(outs)
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
@@ -248,7 +252,8 @@ class ConditionalFlow(nn.Module):
     def forward(self, x: torch.Tensor, embedding: torch.Tensor, reverse: bool = False):
         if self.use_kernel:
             return self.fused(x, embedding, reverse)
-        return self.plain(x, embedding, reverse)
+        with annotate("model/chain"):
+            return self.plain(x, embedding, reverse)
 
     def reverse(self, out: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
         return self(out, embedding, reverse=True)

@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...utils.profiling import annotate
 from .flow import ConditionalFlow
 from .resnet2d import ResnetEncoder
 
@@ -55,11 +56,12 @@ class SupervisedTransformer(nn.Module):
 
     @torch.no_grad()
     def embed(self, cond: Sequence[torch.Tensor]) -> torch.Tensor:
-        x0 = cond[0]
-        emb = self.embedder.encode(x0).mode().reshape(x0.shape[0], -1)
-        if self.control:
-            emb = torch.cat([emb, self.embed_pos(cond[1])], dim=1)
-        return emb.contiguous()
+        with annotate("model/embed"):
+            x0 = cond[0]
+            emb = self.embedder.encode(x0).mode().reshape(x0.shape[0], -1)
+            if self.control:
+                emb = torch.cat([emb, self.embed_pos(cond[1])], dim=1)
+            return emb.contiguous()
 
     def forward(self, x: torch.Tensor, cond: Sequence[torch.Tensor], reverse: bool = False):
         emb = self.embed(cond)

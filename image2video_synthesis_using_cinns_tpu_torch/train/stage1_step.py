@@ -35,8 +35,10 @@ parameters, buffers and inputs (``torch.func.functional_call``), with the
 outputs cast back to fp32, as ``_mixed_precision_apply`` does; losses,
 gradients, the refreshes and the optimizer state stay fp32. The eval step
 runs in fp32. Videos are (B, T, H, W, 3) at the boundary, as the augment
-gives them, and (B, 3, T, H, W) inside. The spans (``stage1/...``) name the
-phases for a profiler's trace.
+gives them, and (B, 3, T, H, W) inside. The spans (``stage1/...``, inside
+the root ``stage1/step``; ``stage1/disc_t/{forward,penalty,backward,adam}``
+and ``stage1/disc_s/{forward,backward,adam}`` inside their phases) name the
+phases for a profiler's trace (``utils/profiling.annotate``).
 
 In a multi-process run (``parallel/distributed.py``) a rank holds its rows of
 the global batch and the step computes what the JAX package's global step
@@ -56,11 +58,11 @@ from dataclasses import dataclass
 import torch
 import torch.nn as nn
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from ..losses.common import KL, fmap_loss, hinge_loss, psnr, ssim
 from ..models.layers import power_iteration_
 from ..parallel import distributed
+from ..utils.profiling import annotate
 from .optim import Adam
 
 N_PATCH = 20
@@ -219,14 +221,16 @@ class Stage1Step:
         """The temporal discriminator's hinge loss plus w_GP times the
         gradient penalty: (total, metrics)."""
         real = real.detach().requires_grad_(bool(self.w_GP))
-        pred_fake, _ = apply(self.models.disc_t, self.dtype, fake)
-        pred_real, _ = apply(self.models.disc_t, self.dtype, real)
-        l_d = hinge_loss(pred_fake, pred_real, "disc")
+        with annotate("stage1/disc_t/forward"):
+            pred_fake, _ = apply(self.models.disc_t, self.dtype, fake)
+            pred_real, _ = apply(self.models.disc_t, self.dtype, real)
+            l_d = hinge_loss(pred_fake, pred_real, "disc")
         if self.w_GP:
             # d mean(logits) / d real over the global batch: the rank's sum over the global count
-            mean_logit = pred_real.sum() / (pred_real.numel() * distributed.world())
-            (grad_x,) = torch.autograd.grad(mean_logit, real, create_graph=create_graph)
-            gp = grad_x.square().reshape(real.shape[0], -1).sum(1).mean()
+            with annotate("stage1/disc_t/penalty"):
+                mean_logit = pred_real.sum() / (pred_real.numel() * distributed.world())
+                (grad_x,) = torch.autograd.grad(mean_logit, real, create_graph=create_graph)
+                gp = grad_x.square().reshape(real.shape[0], -1).sum(1).mean()
         else:
             gp = torch.zeros((), device=real.device)
         metrics = {"Loss_Disc_T": l_d, "L_GP": gp, "Logits_Real_T": pred_real.mean(),
@@ -234,9 +238,10 @@ class Stage1Step:
         return l_d + self.w_GP * gp, metrics
 
     def disc_s_loss(self, fake: torch.Tensor, real: torch.Tensor):
-        pred_fake = apply(self.models.disc_s, self.dtype, fake)
-        pred_real = apply(self.models.disc_s, self.dtype, real)
-        l_d = hinge_loss(pred_fake, pred_real, "disc")
+        with annotate("stage1/disc_s/forward"):
+            pred_fake = apply(self.models.disc_s, self.dtype, fake)
+            pred_real = apply(self.models.disc_s, self.dtype, real)
+            l_d = hinge_loss(pred_fake, pred_real, "disc")
         return l_d, {"Loss_Disc_S": l_d, "Logits_Real_S": pred_real.mean(),
                      "Logits_Fake_S": pred_fake.mean()}
 
@@ -261,9 +266,13 @@ class Stage1Step:
 
     # -- the whole step ------------------------------------------------------------
     def __call__(self, seq: torch.Tensor, epoch: int, draws: StepDraws):
+        with annotate("stage1/step"):
+            return self._step(seq, epoch, draws)
+
+    def _step(self, seq: torch.Tensor, epoch: int, draws: StepDraws):
         m = self.models
         gate_open = epoch >= self.pretrain
-        with record_function("stage1/vae_forward"):
+        with annotate("stage1/vae_forward"):
             fwd = self.forward_vae(seq, draws.eps)
         gen_d, orig = fwd["gen"].detach(), fwd["orig"]
         with torch.no_grad():
@@ -271,30 +280,34 @@ class Stage1Step:
         fake_t, real_t = self.subsample(gen_d, orig, draws.start)
         fake_s, real_s = self.patch_frames(gen_d, orig, draws.patches)
 
-        with record_function("stage1/disc_t"):
+        with annotate("stage1/disc_t"):
             total, mt = self.disc_t_loss(fake_t, real_t, create_graph=gate_open)
             if gate_open:
                 self.opt_dt.zero_grad(set_to_none=True)
-                backward_into(total, list(m.disc_t.parameters()))
-                self.opt_dt.step()
-        with record_function("stage1/disc_s"):
+                with annotate("stage1/disc_t/backward"):
+                    backward_into(total, list(m.disc_t.parameters()))
+                with annotate("stage1/disc_t/adam"):
+                    self.opt_dt.step()
+        with annotate("stage1/disc_s"):
             total, ms = self.disc_s_loss(fake_s, real_s)
             if gate_open:
-                backward_into(total, list(m.disc_s.parameters()))
-                self.opt_ds.step()
+                with annotate("stage1/disc_s/backward"):
+                    backward_into(total, list(m.disc_s.parameters()))
+                with annotate("stage1/disc_s/adam"):
+                    self.opt_ds.step()
         metrics.update({k: v.detach() for k, v in {**mt, **ms}.items()})
         del total, mt, ms
-        with record_function("stage1/spectral"):
+        with annotate("stage1/spectral"):
             power_iteration_(m.disc_t)
             power_iteration_(m.disc_s)
 
-        with record_function("stage1/vae_loss"):
+        with annotate("stage1/vae_loss"):
             total, mv = self.vae_loss(fwd, draws, float(gate_open))
-        with record_function("stage1/vae_backward"):
+        with annotate("stage1/vae_backward"):
             backward_into(total, _ae_params(m))
-        with record_function("stage1/optimizer"):
+        with annotate("stage1/optimizer"):
             self.opt_ae.step()
-        with record_function("stage1/spectral"):
+        with annotate("stage1/spectral"):
             power_iteration_(m.decoder)
         metrics.update({k: v.detach() for k, v in mv.items()})
         return metrics, gen_d.permute(0, 2, 1, 3, 4)

@@ -69,7 +69,6 @@ from datetime import datetime
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import config as cfg
 from ..config import Config
@@ -88,6 +87,7 @@ from ..utils import checkpoint as ckpt_io
 from ..utils import convert
 from ..utils.logging import CSVlogger, Logging, WandbSink
 from ..utils.preemption import PreemptionGuard, maybe_enable_debug_nans
+from ..utils.profiling import annotate
 from .fvd_eval import evaluate_FVD_prior
 from .optim import LRController, adam_torch, get_lr, load_optax_state, optax_state, set_lr
 from .posterior_cache import (WindowIndex, assemble_cache_multiprocess, build_cache,
@@ -202,7 +202,7 @@ def train_step(network: SupervisedTransformer, optimizer, encoder: Encoder, seq,
                eps: torch.Tensor, ref: torch.Tensor) -> dict:
     """One optimisation step of the flow; returns the loss terms (detached).
     The spans name the stages for a profiler's trace."""
-    with record_function("stage2/posterior"):
+    with annotate("stage2/posterior"):
         post = posterior(encoder, seq, eps)
     return _flow_step(network, optimizer, post, cond, ref)
 
@@ -212,7 +212,7 @@ def cached_train_step(network: SupervisedTransformer, optimizer, moments: torch.
                       dtype: torch.dtype | None = None) -> dict:
     """``train_step`` with the posterior resampled from the cache's rows
     ``wids`` in place of the encoder's forward."""
-    with record_function("stage2/posterior_cache"):
+    with annotate("stage2/posterior_cache"):
         post = cached_posterior(moments, wids, eps, dtype)
     return _flow_step(network, optimizer, post, cond, ref)
 
@@ -221,14 +221,14 @@ def _flow_step(network: SupervisedTransformer, optimizer, post, cond, ref) -> di
     """The embedding, the flow by autograd, the loss and ``optimizer``'s step.
     ``network.flow`` may be a ``parallel.tp.TensorParallelFlow``: its master
     shards are then the optimizer's parameters."""
-    with record_function("stage2/embedder"):
+    with annotate("stage2/embedder"):
         emb = network.embed(cond)
-    with record_function("stage2/flow"):
+    with annotate("stage2/flow"):
         gauss, logdet = network.flow.plain(post, emb)
         loss, aux = flow_loss(gauss, logdet, noise=ref)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-    with record_function("stage2/optimizer"):
+    with annotate("stage2/optimizer"):
         optimizer.step()
     return aux
 

@@ -75,7 +75,6 @@ from datetime import datetime
 import numpy as np
 import torch
 import torch.nn as nn
-from torch.profiler import record_function
 
 from .. import config as cfg
 from ..data import get_loader
@@ -93,6 +92,7 @@ from ..parallel import distributed
 from ..utils import checkpoint as ckpt_io
 from ..utils import convert
 from ..utils.logging import CSVlogger, Logging, WandbSink
+from ..utils.profiling import annotate
 from ..utils.video import write_image
 from . import stage1, stage2
 from .optim import Adam, LRController, set_lr
@@ -184,11 +184,11 @@ class AEStep:
         m = self.models
         gate = float(epoch >= self.pretrain)
         with torch.enable_grad():
-            with record_function("stage2_ae/forward"):
+            with annotate("stage2_ae/forward"):
                 f = self.recon_losses(img, train)
                 loss_vae = f["nll"] + self.w_kl * f["kl"]
                 g_loss = hinge_loss(m.disc(f["recon"]), None, "gen")
-            with record_function("stage2_ae/colorize_grads"):
+            with annotate("stage2_ae/colorize_grads"):
                 w = m.network.colorize_weight
                 (g1,) = torch.autograd.grad(loss_vae, w, retain_graph=True)
                 (g2,) = torch.autograd.grad(g_loss, w, retain_graph=True)
@@ -197,29 +197,29 @@ class AEStep:
                                        / (torch.linalg.vector_norm(g2) + 1e-4), 0.0, 1e4).detach()
             loss_total = loss_vae + d_weight * gate * g_loss
             if train:
-                with record_function("stage2_ae/backward"):
+                with annotate("stage2_ae/backward"):
                     backward_into(loss_total, m.gen_params())
         metrics = {k: v.detach() for k, v in (("Loss", loss_total), ("Loss_nll", f["nll"]),
                                                ("L_KL", f["kl"]), ("Loss_G", g_loss))}
         recon, rec = f["recon"].detach(), f["rec"].detach()
         del f, loss_vae, loss_total, g_loss
         if train:
-            with record_function("stage2_ae/gen_optimizer"):
+            with annotate("stage2_ae/gen_optimizer"):
                 self.opt_gen.step()
-            with record_function("stage2_ae/recompute"), torch.no_grad(), \
+            with annotate("stage2_ae/recompute"), torch.no_grad(), \
                     updating_batch_stats(m.network):
                 f = self.recon_losses(img, True)
                 recon, rec = f["recon"], f["rec"]
-        with record_function("stage2_ae/disc"), torch.set_grad_enabled(bool(train and gate)):
+        with annotate("stage2_ae/disc"), torch.set_grad_enabled(bool(train and gate)):
             logits_real, logits_fake = m.disc(img), m.disc(recon)
             d_loss = gate * hinge_loss(logits_fake, logits_real, "disc")
             # the global batch's d_loss decides, the same on every rank
             if train and gate and distributed.mean_scalars({"d": d_loss})["d"] > 0:
                 backward_into(d_loss, list(m.disc.parameters()))
-                with record_function("stage2_ae/disc_optimizer"):
+                with annotate("stage2_ae/disc_optimizer"):
                     self.opt_disc.step()
         if train:
-            with record_function("stage2_ae/spectral"):
+            with annotate("stage2_ae/spectral"):
                 power_iteration_(m.disc)
         metrics.update({
             "Loss_recon": torch.mean(rec), "Logvar": m.logvar.detach().clone(),

@@ -1,83 +1,37 @@
-"""Tracing and timing (port of ``utils/profiling.py``) on ``torch.profiler``.
+"""Spans and timing (port of ``utils/profiling.py``) on ``torch.profiler``.
 
-- ``trace(logdir)``: a context manager around a ``torch.profiler`` window
-  (the host, and the card where there is one); on exit the trace is written
-  to ``logdir`` as a Chrome/Perfetto JSON file. It yields the profiler, so
-  a caller can read ``key_averages()``.
-- ``start_server(port)``: an on-demand capture server for a running job, on
-  localhost: ``GET /trace?ms=N`` records the next N ms (default 1000) of the
-  process into ``logdir`` and answers with the file's path. Activity on the
-  card is traced whole; host ops only on the server's own thread.
-- ``annotate(name)``: a ``record_function`` span, so host phases (data wait,
-  augment, checkpoint write) show on the trace's timeline.
+- ``annotate(name)``: a ``record_function`` span while a torch profiler
+  records, so the program's phases (a call's embed, chains and decode
+  chunks, a training step's parts) show in the same trace as the kernels
+  they launch, on its clock; otherwise one shared ``nullcontext``, so a span
+  costs one attribute read when nothing records. Spans nest on the thread
+  that enters them: a request's spans lie inside its root (``model/sample``,
+  ``model/transfer``, ``stage1/step``).
 - ``StepTimer``: wall-clock step times with an EMA, for the trainers' logs;
   ``stop(result)`` first waits for the card when ``result`` holds CUDA
   tensors, where the JAX package blocks until the result is ready.
+
+A trace is taken by the caller, with ``torch.profiler.profile`` around the
+calls it wants to see.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
-import socket
-import threading
 import time
-import urllib.parse
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.autograd import profiler as _profiler
+
+_OFF = contextlib.nullcontext()
 
 
-def _activities() -> list:
-    return [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-
-
-def _trace_path(logdir: str) -> str:
-    os.makedirs(logdir, exist_ok=True)
-    return os.path.join(logdir, f"{socket.gethostname()}_{os.getpid()}_"
-                                f"{time.time_ns()}.pt.trace.json")
-
-
-@contextlib.contextmanager
-def trace(logdir: str):
-    with profile(activities=_activities()) as prof:
-        yield prof
-    prof.export_chrome_trace(_trace_path(logdir))
-
-
-def start_server(port: int = 9999, logdir: str = "profiles") -> ThreadingHTTPServer:
-    """Serve on-demand traces on ``127.0.0.1:port`` from a daemon thread; the
-    server's ``shutdown()`` stops it (``port=0`` picks a free port, which
-    ``server_address`` gives)."""
-
-    class Handler(BaseHTTPRequestHandler):
-        def do_GET(self):
-            url = urllib.parse.urlparse(self.path)
-            if url.path != "/trace":
-                self.send_error(404)
-                return
-            ms = float(urllib.parse.parse_qs(url.query).get("ms", ["1000"])[0])
-            with profile(activities=_activities()) as prof:
-                time.sleep(ms / 1000.0)
-            path = _trace_path(logdir)
-            prof.export_chrome_trace(path)
-            body = path.encode()
-            self.send_response(200)
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-
-        def log_message(self, *args):  # quiet
-            pass
-
-    server = ThreadingHTTPServer(("127.0.0.1", port), Handler)
-    threading.Thread(target=server.serve_forever, daemon=True).start()
-    return server
-
-
-def annotate(name: str) -> record_function:
-    return record_function(name)
+def annotate(name: str):
+    """A ``record_function(name)`` span when a profiler records, else the
+    shared null context."""
+    if _profiler._is_profiler_enabled:
+        return _profiler.record_function(name)
+    return _OFF
 
 
 def _synchronize(result) -> None:

@@ -13,12 +13,15 @@
 * ``checkpoint.find``/``load`` side by side with the JAX ones on ``.msgpack``,
   ``.pth`` and ``.pth.tar`` stems and the missing-``.msgpack`` fallback; the
   serving loader's refusal of a reference payload.
-* ``utils/profiling.py``: ``StepTimer``, ``trace``, ``annotate``, ``start_server``.
+* ``utils/profiling.py``: ``StepTimer``, and ``annotate`` under a profiler (a span
+  nested in its parent in the trace).
 
 The CLI (``cli/convert_weights.py``) is held against the JAX script in
 ``test_torch_port_convert_cli.py``.
 """
 
+import contextlib
+import json
 import os
 
 import jax
@@ -400,20 +403,19 @@ def test_step_timer_follows_jax_ema():
 
 
 def test_trace_annotate_and_server_write_traces(tmp_path):
-    import urllib.request
+    from torch.profiler import ProfilerActivity, profile
 
-    with profiling.trace(str(tmp_path / "t")) as prof:
+    assert isinstance(profiling.annotate("port/phase"), contextlib.nullcontext)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
         with profiling.annotate("port/phase"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    assert any(e.key == "port/phase" for e in prof.key_averages())
-    files = os.listdir(tmp_path / "t")
-    assert len(files) == 1 and files[0].endswith(".pt.trace.json")
-    assert "port/phase" in open(tmp_path / "t" / files[0]).read()
-    server = profiling.start_server(0, str(tmp_path / "s"))
-    try:
-        port = server.server_address[1]
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/trace?ms=20", timeout=30) as r:
-            path = r.read().decode()
-    finally:
-        server.shutdown()
-    assert os.path.dirname(path) == str(tmp_path / "s") and os.path.exists(path)
+            with profiling.annotate("port/inner"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    keys = {e.key for e in prof.key_averages()}
+    assert {"port/phase", "port/inner"} <= keys
+    path = tmp_path / "t.pt.trace.json"
+    prof.export_chrome_trace(str(path))
+    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in json.loads(path.read_text())[
+        "traceEvents"] if e.get("cat") == "user_annotation"}
+    outer, inner = spans["port/phase"], spans["port/inner"]
+    assert outer[0] <= inner[0] and inner[1] <= outer[1]
+    assert isinstance(profiling.annotate("port/phase"), contextlib.nullcontext)
