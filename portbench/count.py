@@ -256,3 +256,15 @@ def stage1_step_flops(cfg: dict, batch: int) -> int:
     f_ds = patch_disc_flops(cfg["Discriminator_Patch"], img, 20)
     f_lp = lpips_flops(img, batch * frames) // 2  # one image of each pair
     return 3 * (f_enc + f_dec) + 12 * f_dt + 8 * f_ds + 3 * f_lp
+
+
+def stage2_step_flops(cfg: dict, batch: int) -> int:
+    """One stage-2 step (``train.stage2.train_step``) on ``batch`` clips of
+    ``sequence_length`` frames: the frozen encoder's forward on frames 1:, the
+    frozen embedder's forward on the start frame, and the flow's forward
+    chain with its backward (input and weight gradients: twice the forward)."""
+    img = cfg["Data"]["img_size"]
+    frames = cfg["Data"]["sequence_length"] - 1
+    return (encoder_flops(cfg["Encoder"], frames, img, batch)
+            + embedder_flops(cfg["AE"], img, batch)
+            + 3 * chain_flops(*chain_shape(cfg), batch))

@@ -19,7 +19,7 @@ ROOT = Path(__file__).resolve().parents[2]
 BENCH = harness.load_benchmark(ROOT)
 CELLS = [c["name"] for c in BENCH["workloads"]]
 SMALL = {"sample": {"batch": 4, "keep_calls": 1}, "transfer": {"starts": 4, "keep_calls": 1},
-         "stage1_train": {"batch": 4}}
+         "stage1_train": {"batch": 4}, "stage2_train": {"batch": 8}}
 
 
 @pytest.mark.card

@@ -1,4 +1,4 @@
-"""Whole runs of the three runners at the tiny preset on the CPU, past the
+"""Whole runs of the four runners at the tiny preset on the CPU, past the
 harness's look for a card: a sound run is correct, and a run with the timed
 path broken underneath is not, once for each fault a cell can have. A cell
 added by new files and entries alone runs without an edit to any file."""
@@ -15,11 +15,14 @@ from portbench.tests import tiny
 
 CPU = torch.device("cpu")
 # the tiny cells' limits, between their sound readings (sample z 5e-4, video
-# 1.1e-2; transfer z 2e-7; training loss 0, gradient 2e-6, change 6e-2) and
-# their fp8/TF32 controls' (6e-3, 0.12; 1.5e-3, 0.11; 5e-3, 0.2, 0.17)
+# 1.1e-2; transfer z 2e-7; training loss 0, gradient 2e-6, change 6e-2;
+# stage 2 loss 0, gradient 0, change 3.4e-7) and their fp8/TF32 controls'
+# (6e-3, 0.12; 1.5e-3, 0.11; 5e-3, 0.2, 0.17; 1.5e-3, 2.2e-3, 4.7e-3)
 LIMITS = {"sample": {"z_gap": 2e-3, "video_gap": 4e-2},
           "transfer": {"z_gap": 5e-4, "video_gap": 4e-2},
-          "train": {"loss_gap": 1e-4, "grad_gap": 1e-3, "change_gap": 0.12}}
+          "train": {"loss_gap": 1e-4, "grad_gap": 1e-3, "change_gap": 0.12},
+          "stage2": {"loss_gap": 2e-4, "grad_gap": 2e-4, "change_gap": 1e-3}}
+CELLS = ["tiny-sample", "tiny-transfer", "tiny-train", "tiny-stage2"]
 
 
 @pytest.fixture(scope="module")
@@ -37,7 +40,7 @@ def run(root, workload, trace=False, seed=2 ** 31 + 7):
         torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("workload", ["tiny-sample", "tiny-transfer", "tiny-train"])
+@pytest.mark.parametrize("workload", CELLS)
 def test_a_sound_run_is_correct(root, workload):
     out = run(root, workload)
     assert out.correct, out.checks
@@ -118,24 +121,51 @@ def _altered_loss(monkeypatch):
     monkeypatch.setattr(stage1_step, "hinge_loss", lambda *a: 1.1 * hinge(*a))
 
 
+def _half_stage2(monkeypatch):
+    from image2video_synthesis_using_cinns_tpu_torch.train import stage2
+
+    step = stage2.train_step
+
+    def half(network, optimizer, encoder, seq, cond, eps, ref):
+        h = seq.shape[0] // 2
+        return step(network, optimizer, encoder, seq[:h], [c[:h] for c in cond], eps[:h],
+                    ref[:h])
+
+    monkeypatch.setattr(stage2, "train_step", half)
+
+
+def _altered_flow_loss(monkeypatch):
+    from image2video_synthesis_using_cinns_tpu_torch.train import stage2
+
+    flow_loss = stage2.flow_loss
+
+    def altered(gauss, logdet, **kw):
+        loss, aux = flow_loss(gauss, logdet, **kw)
+        return 1.1 * loss, {k: 1.1 * v for k, v in aux.items()}
+
+    monkeypatch.setattr(stage2, "flow_loss", altered)
+
+
 @pytest.mark.parametrize("workload,fault", [
     ("tiny-sample", _half_sample), ("tiny-sample", _altered_chain),
     ("tiny-transfer", _half_transfer), ("tiny-transfer", _altered_chain),
     ("tiny-train", _unchanged_state), ("tiny-train", _half_batch),
-    ("tiny-train", _altered_loss),
+    ("tiny-train", _altered_loss), ("tiny-stage2", _unchanged_state),
+    ("tiny-stage2", _half_stage2), ("tiny-stage2", _altered_flow_loss),
 ], ids=["sample-half", "sample-altered", "transfer-half", "transfer-altered",
-        "train-unchanged", "train-half", "train-altered"])
+        "train-unchanged", "train-half", "train-altered", "stage2-unchanged", "stage2-half",
+        "stage2-altered"])
 def test_a_broken_timed_path_is_not_correct(root, workload, fault, monkeypatch):
     fault(monkeypatch)
     out = run(root, workload)
     assert not out.correct, out.checks
 
 
-@pytest.mark.parametrize("workload", ["tiny-sample", "tiny-transfer", "tiny-train"])
+@pytest.mark.parametrize("workload", CELLS)
 def test_a_traced_run_reads_its_metrics(root, workload):
     out = run(root, workload, trace=True)
     assert out.correct, out.checks
-    if workload != "tiny-train":
+    if workload not in ("tiny-train", "tiny-stage2"):
         assert out.metrics["host_ms_per_call"]["value"] > 0  # the one not from the device
 
 

@@ -1,6 +1,6 @@
 """``portbench/count.py`` against ``torch.utils.flop_counter.FlopCounterMode``
 at the tiny preset on the CPU: each forward count exactly, the stage-1 step's
-count within its stated approximation."""
+count within its stated approximation, the stage-2 step's exactly."""
 
 import json
 from pathlib import Path
@@ -15,6 +15,8 @@ from portbench.reference import discriminators as ref_disc
 from portbench.reference import flow as ref_flow
 from portbench.reference import resnet as ref_resnet
 from portbench.reference import stage1 as ref_stage1
+from portbench.reference import stage2 as ref_stage2
+from portbench.runners.stage2_train import Runner as Stage2Runner
 from portbench.tests import tiny
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -123,3 +125,19 @@ def test_stage1_step_count_within_its_approximation(two_threads):
     want = fc.total
     got = count.stage1_step_flops(cfg, b)
     assert abs(got / want - 1) < 0.15, (got, want)
+
+
+def test_stage2_step_count_is_the_references_step(two_threads):
+    """The encoder's and the embedder's forwards and the flow's forward and
+    backward (input and weight gradients) of one reference step."""
+    cfg = tiny.tiny_config()
+    traffic = dict(tiny.TRAFFIC["tiny-stage2"], Training={"lr": 1e-5, "beta1": 0.9,
+                                                          "beta2": 0.99, "weight_decay": 0})
+    drv = Stage2Runner(cfg, traffic, 3, torch.device("cpu"))
+    drv.prepare()
+    step = ref_stage2.Step(cfg, traffic["Training"], drv.state, torch.device("cpu"))
+    b, t, img = drv.batch, cfg["Data"]["sequence_length"], cfg["Data"]["img_size"]
+    seq = torch.rand(b, t, img, img, 3) * 2 - 1
+    with _Flops() as fc:
+        step(seq, torch.randn(b, cfg["Decoder"]["z_dim"]))
+    assert count.stage2_step_flops(cfg, b) == fc.total

@@ -32,9 +32,9 @@ for cell in bench["workloads"]:
     harness.runner_of(harness.ROOT, harness.traffic_of(harness.ROOT, cell["traffic"])["runner"])
 for m in bench["per_layer"]:
     harness.reader_of(harness.ROOT, m["name"])
-import portbench.reference.stage1, portbench.reference.flow
+import portbench.reference.stage1, portbench.reference.stage2, portbench.reference.flow
 from {PORT}.models import facade
-from {PORT}.train import stage1, stage1_step, optim
+from {PORT}.train import stage1, stage1_step, stage2, optim
 from {PORT}.data import augment
 from {PORT}.ops.cuda import flow_kernel
 """
@@ -48,6 +48,7 @@ def test_the_reference_loads_nothing_of_the_port():
 import sys; sys.path.insert(0, {str(ROOT)!r})
 import portbench.reference.nn, portbench.reference.decoder, portbench.reference.resnet
 import portbench.reference.flow, portbench.reference.discriminators, portbench.reference.stage1
+import portbench.reference.stage2
 """
     found = loaded_after(code)
     assert not found & {PORT, *JAX}

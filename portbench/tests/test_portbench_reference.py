@@ -1,11 +1,11 @@
 """The plain reference against the port's eager path (no kernel, fp32) at
-the tiny preset on the CPU: sampling, transfer and one stage-1 step, from
-the same seeded weights and inputs."""
+the tiny preset on the CPU: sampling, transfer, one stage-1 step and one
+stage-2 step, from the same seeded weights and inputs."""
 
 import torch
 
 from portbench import harness, serving
-from portbench.runners import stage1_train
+from portbench.runners import stage1_train, stage2_train
 from portbench.reference import stage1 as ref_stage1
 from portbench.tests import tiny
 
@@ -91,3 +91,34 @@ def test_stage1_step_matches_the_port(two_threads):
     # size, so a weight whose gradient is round-off (a bias under a norm)
     # moves either way on either side; the leaves' norms of the change agree
     assert gaps["loss_gap"] < TOL and gaps["grad_gap"] < 1e-4 and gaps["change_gap"] < 1e-4, gaps
+
+
+def test_stage2_step_matches_the_port(two_threads):
+    """The ActNorm init and one ``train_step`` from the same weights, batch and
+    draws: the loss terms, each flow leaf's gradient and its change."""
+    from image2video_synthesis_using_cinns_tpu_torch.data.augment import build_augment
+    from image2video_synthesis_using_cinns_tpu_torch.train import stage2
+    from image2video_synthesis_using_cinns_tpu_torch.train.optim import adam_torch
+
+    cfg = tiny.tiny_config()
+    tr = {"lr": 1e-5, "beta1": 0.9, "beta2": 0.99, "weight_decay": 0, "amsgrad": True}
+    drv = stage2_train.Runner(cfg, dict(tiny.TRAFFIC["tiny-stage2"], Training=tr), 9, CPU)
+    drv.prepare()
+    models = stage2.build_models_from_configs(*serving.port_configs(cfg))
+    models.encoder.load_state_dict(drv.state["encoder"])
+    models.network.load_state_dict(drv.state["network"])
+    aug_draws, eps, ref = drv.draws(0)
+    seq = build_augment(32, drv.params, False, True)(drv.raw(0), draws=aug_draws)
+    assert torch.equal(seq, ref_stage1.augment(drv.raw(0), 32, drv.params, aug_draws))
+    cond = stage2.conditioning(seq, None)
+    models.network.init_actnorm(stage2.posterior(models.encoder, seq, drv.actnorm_eps()), cond)
+    named = dict(models.network.flow.named_parameters())
+    before = {k: p.detach().clone() for k, p in named.items()}
+    optimizer = adam_torch(list(named.values()), tr["lr"], betas=(0.9, 0.99), amsgrad=True)
+    aux = stage2.train_step(models.network, optimizer, models.encoder, seq, cond, eps, ref)
+    got = {"losses": [{k: float(v) for k, v in aux.items()}],
+           "grads": {k: float(optimizer.state[p]["mu"].norm()) / 0.1 for k, p in named.items()},
+           "change": {k: float((p.detach() - before[k]).norm()) for k, p in named.items()}}
+    drv.traffic = dict(drv.traffic, checked_steps=1)
+    gaps = drv.compare(got, drv.reference_readings())
+    assert gaps["loss_gap"] < TOL and gaps["grad_gap"] < TOL and gaps["change_gap"] < TOL, gaps

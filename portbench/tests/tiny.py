@@ -1,5 +1,5 @@
 """A tiny copy of the benchmark for CPU tests: the port's ``tiny`` preset as
-configuration files, the three traffic mixes at small batches, and a
+configuration files, the four traffic mixes at small batches, and a
 ``BENCHMARK.json`` naming them, written into a directory of its own."""
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ TRAFFIC = {
     "tiny-transfer": {"starts": 3, "query_frames": 9, "vid_length": 12, "keep_calls": 2,
                       "reference_rows": 2},
     "tiny-train": {"batch": 4, "n_clips": 16, "fetch_every": 2, "checked_steps": 3},
+    "tiny-stage2": {"batch": 6, "n_clips": 24, "fetch_every": 2, "checked_steps": 3},
 }
 
 
@@ -56,12 +57,12 @@ def tiny_config(**changes) -> dict:
 def write_root(root: Path, limits: dict | None = None) -> Path:
     """A copy of ``portbench/`` under ``root`` with the tiny configuration,
     the tiny traffic mixes (their runners the real ones) and a
-    ``BENCHMARK.json`` of three tiny cells, the real metrics beside them."""
+    ``BENCHMARK.json`` of four tiny cells, the real metrics beside them."""
     shutil.copytree(HERE, root / "portbench", ignore=shutil.ignore_patterns("__pycache__"))
     (root / "portbench" / "configs" / "tiny.json").write_text(json.dumps(TINY))
     real = json.loads((ROOT / "BENCHMARK.json").read_text())
     cells = {"sample": "bair-sample-b32", "transfer": "landscape-transfer-n16",
-             "train": "bair-train-stage1-b10"}
+             "train": "bair-train-stage1-b10", "stage2": "bair-train-stage2-b50"}
     workloads = []
     for kind, real_cell in cells.items():
         real_traffic = next(c for c in real["workloads"] if c["name"] == real_cell)["traffic"]
